@@ -1,0 +1,100 @@
+"""ReverseKRanksEngine — the port's public API for a static index.
+
+Counterpart of the static part of `repro/core/engine.py`: Algorithm 1
+(`build`) plus the batched §4.3 query on a backend chosen by name
+("dense" or "fused"). Snapshots, mutation and persistence are not ported
+yet (ROADMAP queue 1 item 7).
+
+    eng = ReverseKRanksEngine.build(users, items, RankTableConfig(),
+                                    1, backend="fused")
+    res = eng.query_batch(qs, k=10, c=2.0)     # leading B axis on fields
+    res = eng.query(q, k=10, c=2.0)            # the B = 1 case
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.core import query as query_mod
+from repro_torch.core.backends import QueryBackend, available_backends, \
+    get_backend
+from repro_torch.core.types import QueryResult, RankTable, RankTableConfig
+from repro_torch.device import resolve_device
+
+
+class ReverseKRanksEngine:
+    """Owns the user matrix and rank table; queries run on `backend`."""
+
+    def __init__(self, users: torch.Tensor, rank_table: RankTable,
+                 config: RankTableConfig,
+                 backend: Union[str, QueryBackend] = "dense"):
+        self.users = users
+        self.rank_table = rank_table
+        self.config = config
+        self._backend = get_backend(backend)
+
+    @classmethod
+    def build(cls, users: torch.Tensor, items: torch.Tensor,
+              cfg: RankTableConfig,
+              generator: Union[int, torch.Generator, None], *,
+              backend: Union[str, QueryBackend] = "dense", device=None,
+              positions: Optional[torch.Tensor] = None,
+              weights: Optional[torch.Tensor] = None
+              ) -> "ReverseKRanksEngine":
+        """Run Algorithm 1 on `device` (the CUDA card unless the caller
+        passes device='cpu') and return a query-ready engine.
+
+        `generator` is a seed or a torch.Generator on that device; the
+        samples may instead be given as `positions` and `weights`.
+        """
+        dev = resolve_device(device)
+        users = users.to(device=dev, dtype=torch.float32).contiguous()
+        items = items.to(device=dev, dtype=torch.float32).contiguous()
+        if isinstance(generator, int):
+            seed, generator = generator, torch.Generator(device=dev)
+            generator.manual_seed(seed)
+        bk = get_backend(backend)
+        rt = bk.build_index(users, items, cfg, generator,
+                            positions=positions, weights=weights)
+        return cls(users=users, rank_table=rt, config=cfg, backend=bk)
+
+    @property
+    def backend_name(self) -> str:
+        return self._backend.name
+
+    @staticmethod
+    def backends() -> list[str]:
+        return available_backends()
+
+    def query_batch(self, qs: torch.Tensor, k: int, c: float) -> QueryResult:
+        """Batched queries: qs is (B, d); every field gains a leading B
+        axis. One table pass serves the whole batch."""
+        if qs.ndim != 2:
+            raise ValueError(
+                f"query_batch expects (B, d) queries; got {tuple(qs.shape)}")
+        qs = qs.to(device=self.users.device, dtype=torch.float32)
+        return self._backend.query_batch(self.rank_table, self.users,
+                                         qs.contiguous(), k=k, c=c)
+
+    def query(self, q: torch.Tensor, k: int, c: float) -> QueryResult:
+        """One query — the B = 1 case of `query_batch`."""
+        if q.ndim != 1:
+            raise ValueError(f"query expects a (d,) vector; got "
+                             f"{tuple(q.shape)} (use query_batch for (B, d) "
+                             "blocks)")
+        return query_mod.squeeze_result(self.query_batch(q[None, :], k, c))
+
+    @property
+    def n(self) -> int:
+        return self.users.shape[0]
+
+    @property
+    def d(self) -> int:
+        return self.users.shape[1]
+
+    def memory_bytes(self) -> int:
+        """Query-path storage: thresholds + table + the user matrix."""
+        sz = lambda a: a.numel() * a.element_size()
+        rt = self.rank_table
+        return sz(rt.thresholds) + sz(rt.table) + sz(self.users)

@@ -1,0 +1,92 @@
+"""The port imports neither JAX nor the reference package, and its entry
+points never fall back to the CPU quietly."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+
+# Runs in a fresh interpreter: blocking modules by import hooks in the
+# pytest process would break every JAX test that shares the worker.
+_NO_JAX = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import torch
+from repro_torch.core.engine import ReverseKRanksEngine
+from repro_torch.core.types import RankTableConfig
+from repro_torch.data.pipeline import synthetic_embeddings
+users, items = synthetic_embeddings(0, 64, 40, 8, device="cpu")
+eng = ReverseKRanksEngine.build(users, items, RankTableConfig(tau=8,
+                                omega=2, s=4), 0, backend="fused",
+                                device="cpu")
+res = eng.query(items[3], 5, 2.0)
+assert res.indices.shape == (5,)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("OK", len(names))
+"""
+
+
+def test_port_imports_and_runs_without_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", _NO_JAX], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("OK")
+    assert int(out.stdout.split()[1]) >= 15      # every submodule imported
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(SRC)))
+def test_no_file_of_the_port_imports_jax_or_reference(path):
+    roots = {name.split(".")[0] for name in _imports(path)}
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_entry_points_without_device_need_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from repro_torch.core.engine import ReverseKRanksEngine
+    from repro_torch.core.types import RankTableConfig
+    from repro_torch.data.pipeline import synthetic_embeddings
+    x = torch.zeros(4, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReverseKRanksEngine.build(x, x, RankTableConfig(tau=2, omega=1,
+                                                        s=1), 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synthetic_embeddings(0, 4, 4, 2)
+
+
+def test_f32_products_stay_ieee():
+    import repro_torch  # noqa: F401  (the import sets the switches)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
