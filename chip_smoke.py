@@ -34,6 +34,7 @@ name and power limit, and the result object.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -299,8 +300,9 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
     print("phase: kernels vs plain, ragged shapes")
     g = torch.Generator(device=dev)
     g.manual_seed(7)
-    for (n, m, d, tau, bs) in [(1000, 777, 37, 37, (1, 3, 16, 19)),
-                               (333, 300, 200, 128, (1, 16))]:
+    for (n, m, d, tau, bs) in [(1000, 777, 37, 37, (1, 2, 3, 6, 16, 19)),
+                               (333, 300, 200, 128, (1, 16)),
+                               (300, 500, 24, 777, (1, 5, 16))]:
         users = torch.randn((n, d), generator=g, device=dev)
         items = torch.randn((m, d), generator=g, device=dev) * (
             1.0 + 0.3 * torch.randn((m, 1), generator=g, device=dev)).abs()
@@ -316,10 +318,18 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
                             device=dev) + 0.5
         check_k2(torch, ops, ref, users, samples, w_rand, rt.thresholds,
                  "ragged, random weights")
+        first = None
         for nb in bs:
             qs = items[torch.arange(nb, device=dev) * 5 % m].contiguous()
             check_k1(torch, ops, ref, users, qs, rt.thresholds, rt.table,
                      m, "ragged")
+            # K1 instantiates B = 1, 2, 4, 8, 16; query 0 must come out
+            # bitwise the same from every instance
+            got = [x[0] for x in ops.bound_ranks_batched(
+                users, qs, rt.thresholds, rt.table, m=m)]
+            first = got if first is None else first
+            check(all(torch.equal(a, b) for a, b in zip(got, first)),
+                  f"K1 ragged: query 0 at B={nb} differs from B={bs[0]}")
         for q, what in ((items[11], "q in P"),
                         (torch.randn((d,), generator=g, device=dev),
                          "random q")):
@@ -481,9 +491,16 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
             users, q, thr, tab, m=M), reps=20)
         pms = time_ms(torch, lambda: ref.ref_bound_ranks(
             users, q, thr, tab, M), reps=5)
+        # least bytes: U and Q once; per user, a search of the sorted
+        # thresholds row (⌈log2 τ⌉ 32-byte sectors a query, at most the
+        # row) and two table gathers a query (at most the row); outputs
+        probes = math.ceil(math.log2(TAU))
+        row_bytes = 4 * TAU
+        k1_bytes = (4 * (N * D + nb * D) + N * min(row_bytes, nb * probes * 32)
+                    + N * min(row_bytes, 2 * nb * 32) + 12 * N * nb)
         row(f"k1_bound_ranks[B={nb}]", replaces, counts["k1_bound_ranks"],
-            err, ms, pms, 4 * (N * D + nb * D + 2 * N * TAU + 3 * N * nb),
-            2 * N * D * nb + N * TAU * nb, src + "user_scores.cu")
+            err, ms, pms, k1_bytes, 2 * N * D * nb + N * nb * probes,
+            src + "user_scores.cu")
 
     table_k2, err = check_k2(torch, ops, ref, users, samples, w, thr,
                              "Netflix")
@@ -493,6 +510,10 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
                  reps=5)
     pms = time_ms(torch, lambda: ref.ref_table_rows(users, samples, w, thr),
                   reps=1)
+    est_ms = time_ms(torch, lambda: ref.estimate_table_rows(
+        users @ samples.T, w, thr), reps=3)
+    print(f"  K2's sort + suffix-sum form (the wrapper's CPU path) on the "
+          f"card: {est_ms:.3f} ms")
     S = samples.shape[0]
     row("k2_table_build", "src/repro/kernels/table_build.py:28",
         counts["k2_table_build"], err, ms, pms,

@@ -1,24 +1,23 @@
 """Exact reverse k-ranks (Definitions 1 and 2) — the O(nmd) oracle.
 
-Counterpart of `repro/core/exact.py`. On a CUDA tensor `exact_ranks`
-runs the K3 kernel; on the CPU the plain version in user blocks, so the
-(n, m) score matrix never exists at once (34 GB at Netflix scale).
+Counterpart of `repro/core/exact.py`. `exact_ranks` goes through
+`kernels.ops.exact_ranks`: on a CUDA tensor the K3 kernel, on the CPU
+the plain version in user blocks, so the (n, m) score matrix never
+exists at once (34 GB at Netflix scale).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.query import smallest_k
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 
 
 def exact_ranks(users: torch.Tensor, items: torch.Tensor, q: torch.Tensor,
                 block: int = 4096) -> torch.Tensor:
     """r(q, u, P) = 1 + #{p ∈ P : u·p > u·q} for every user → (n,) int32.
     `block` is the user-block size of the CPU path."""
-    if users.is_cuda:
-        return ops.exact_ranks(users, items, q)
-    return 1 + ref.ref_exact_counts(users, items, q, block=block)
+    return ops.exact_ranks(users, items, q, block=block)
 
 
 def reverse_k_ranks(users: torch.Tensor, items: torch.Tensor,

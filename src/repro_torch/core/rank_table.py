@@ -4,9 +4,10 @@ Counterpart of `repro/core/rank_table.py`, in three stages:
 
   1. norm pass + descending sort of P, ω partitions, s samples each;
   2. per-user threshold grids from f_min/f_max;
-  3. Eq. (1) for all τ thresholds: on a CUDA tensor the K2 kernel
-     (`kernels.ops.build_table_rows`), on the CPU the sort + weighted
-     suffix-sum of `estimate_table_rows`.
+  3. Eq. (1) for all τ thresholds through `kernels.ops.build_table_rows`:
+     on a CUDA tensor the K2 kernel, on the CPU its plain version, the
+     sort + weighted suffix sum of `estimate_table_rows` (kept in
+     `kernels/ref.py` beside the other plain versions).
 
 The sampling RNG cannot match `jax.random`, so the build also takes
 explicit `positions`/`weights`, which the tests take from the reference.
@@ -20,6 +21,7 @@ import torch
 from repro_torch.core.types import RankTable, RankTableConfig, \
     partition_sizes
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import estimate_table_rows  # noqa: F401 (Eq. 1)
 
 
 def stratified_sample_indices(m: int, cfg: RankTableConfig,
@@ -55,23 +57,6 @@ def threshold_grid(smin: torch.Tensor, smax: torch.Tensor, tau: int
     frac = torch.arange(tau, dtype=torch.float32,
                         device=smin.device) / (tau - 1)
     return smin[:, None] + frac[None, :] * (smax - smin)[:, None]
-
-
-def estimate_table_rows(scores: torch.Tensor, weights: torch.Tensor,
-                        thresholds: torch.Tensor) -> torch.Tensor:
-    """Eq. (1) by sort + weighted suffix sum, for (n, S) scores, (S,)
-    weights and (n, τ) ascending thresholds → (n, τ) f32 rows
-    1 + Σ_s w_s·I[score_s > t_j], non-increasing along j."""
-    scores_sorted, order = torch.sort(scores, dim=1, stable=True)
-    w_sorted = weights[order]
-    suffix = torch.cat(
-        [torch.flip(torch.cumsum(torch.flip(w_sorted, [1]), dim=1), [1]),
-         torch.zeros_like(w_sorted[:, :1])], dim=1)
-    # right=True: idx = #{scores <= t}, so the samples from idx on are
-    # strictly greater than t — the indicator u·p > t of Eq. (1).
-    idx = torch.searchsorted(scores_sorted, thresholds.contiguous(),
-                             right=True)
-    return 1.0 + torch.gather(suffix, 1, idx)
 
 
 def _threshold_range(users: torch.Tensor, items_sorted: torch.Tensor,
@@ -112,12 +97,9 @@ def build_rank_table_sorted(users: torch.Tensor, items_sorted: torch.Tensor,
     weights = weights.to(device=users.device, dtype=torch.float32)
     scores = users @ samples.T                          # (n, ω·s)
     smin, smax = _threshold_range(users, items_sorted, scores, cfg)
+    del scores                          # stage 3 recomputes them
     thresholds = threshold_grid(smin, smax, cfg.tau).contiguous()
-    if users.is_cuda:
-        del scores                      # K2 recomputes them on chip
-        table = ops.build_table_rows(users, samples, weights, thresholds)
-    else:
-        table = estimate_table_rows(scores, weights, thresholds)
+    table = ops.build_table_rows(users, samples, weights, thresholds)
     return RankTable(thresholds=thresholds, table=table, m=m)
 
 

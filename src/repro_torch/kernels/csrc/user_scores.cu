@@ -14,77 +14,182 @@
 // literally as the plain version (repro_torch/core/query.py
 // lookup_bounds_batch).
 //
-// Bound on the card: memory. Every call streams U (n·d) and the
-// thresholds (n·tau) once, and gathers from the table; the B queries of
-// a launch share one read of each thresholds row. Design: one warp per
-// user, Qᵀ in shared memory for the whole block; the warp reads the user
-// row and the thresholds row coalesced, and lane b finishes query b.
-// Ragged n, d, tau and B are masked here; nothing is padded.
+// Design: one warp per user, Qᵀ in shared memory for the whole block.
+// The query count NB is a template parameter (1, 2, 4, 8 or 16; a launch
+// takes the smallest that holds its B), so a single query computes one
+// dot product, not sixteen. The warp loads the user row and the thresholds row coalesced,
+// a whole chunk per lane before using any of it, and the first thresholds
+// chunk together with the user row, so that many loads are in flight.
+// Lane l accumulates u·q_b over k = l, l+32, ... with fmaf; the 32
+// partial sums of every query reduce by recursive halving, which pairs
+// the same lanes in the same order as an xor butterfly, so a score is
+// bitwise the same at every NB. After it, the 32 / NB lanes of query b
+// hold u·q_b. The thresholds row is ascending (the build's grid), so idx
+// is a search, as the plain version's searchsorted, not τ·NB compares:
+// for one query, two rounds of warp-wide probes in global memory (16
+// segment ends, then the one segment), which read about 1/16 of the row;
+// for several, a binary search by every lane of each 512-float chunk of
+// the row, staged in the warp's shared memory.
+// The first lane of each query's group finishes that query. Ragged n, d,
+// tau and B are masked here; nothing is padded.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kWarps = 8;    // users in flight per block, one warp each
-constexpr int kMaxB = 16;    // queries per launch
+constexpr int kWarps = 8;     // users in flight per block, one warp each
+constexpr int kMaxB = 16;     // queries per launch
+constexpr int kUChunk = 8;    // user-row floats each lane loads at once
+constexpr int kTChunk = 16;   // thresholds each lane loads at once
+constexpr int kTile = 32 * kTChunk;  // thresholds a warp searches at once
 constexpr unsigned kFull = 0xffffffffu;
 
+// Row stride of Qᵀ in shared memory: lanes read a row each as float4s,
+// and a stride of 20 (NB = 16) or 12 (NB = 8) floats keeps the eight
+// lanes of a quarter-warp on distinct banks.
+template <int NB>
+__host__ __device__ constexpr int q_stride() { return NB >= 8 ? NB + 4 : NB; }
+
+template <int NB>
+__host__ __device__ constexpr int log2_nb() {
+  return NB >= 16 ? 4 : NB >= 8 ? 3 : NB >= 4 ? 2 : NB >= 2 ? 1 : 0;
+}
+
+// Sum v[b] over the 32 lanes for all b < NB. While a lane holds CUR > 1
+// values it keeps half of them and adds its partner's copy of that half;
+// with one value left it finishes as an xor butterfly. Lane l ends with
+// the sum of query l >> (5 - log2 NB) in v[0].
+template <int NB, int CUR, int OFF, typename T>
+__device__ __forceinline__ void halve(T (&v)[NB], int lane) {
+  if constexpr (CUR > 1) {
+    constexpr int kHalf = CUR / 2;
+    const bool upper = (lane & OFF) != 0;
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) {
+      const T send = upper ? v[i] : v[i + kHalf];
+      const T keep = upper ? v[i + kHalf] : v[i];
+      v[i] = keep + __shfl_xor_sync(kFull, send, OFF);
+    }
+    halve<NB, kHalf, OFF / 2>(v, lane);
+  } else {
+#pragma unroll
+    for (int off = OFF; off > 0; off >>= 1)
+      v[0] += __shfl_xor_sync(kFull, v[0], off);
+  }
+}
+
+template <int NB>
 __global__ void __launch_bounds__(kWarps * 32)
 bound_ranks_kernel(const float* __restrict__ U, const float* __restrict__ Q,
                    const float* __restrict__ thr,
                    const float* __restrict__ tab, float* __restrict__ r_lo,
                    float* __restrict__ r_up, float* __restrict__ est, int n,
                    int d, int B, int tau, int ldo, float m_plus_1) {
-  extern __shared__ float qs[];  // (d, kMaxB): qs[k * kMaxB + b]
-  for (int i = threadIdx.x; i < d * kMaxB; i += blockDim.x) {
-    const int k = i / kMaxB, b = i % kMaxB;
-    qs[i] = b < B ? Q[(size_t)b * d + k] : 0.f;
+  constexpr int kStride = q_stride<NB>();
+  constexpr int kShift = 5 - log2_nb<NB>();  // lanes per query: 1 << kShift
+  extern __shared__ __align__(16) float qs[];  // (d, kStride): qs[k][b]
+  float* ts = qs + d * kStride + (threadIdx.x >> 5) * kTile;  // warp tile
+  for (int i = threadIdx.x; i < d * NB; i += blockDim.x) {
+    const int k = i / NB, b = i % NB;
+    qs[k * kStride + b] = b < B ? Q[(size_t)b * d + k] : 0.f;
   }
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int my_b = lane >> kShift;
+  const bool finisher = (lane & ((1 << kShift) - 1)) == 0 && my_b < B;
   const float ftau = (float)tau;
 
   for (int user = blockIdx.x * kWarps + warp; user < n;
        user += gridDim.x * kWarps) {
     const float* u = U + (size_t)user * d;
-    float acc[kMaxB];
-#pragma unroll
-    for (int b = 0; b < kMaxB; ++b) acc[b] = 0.f;
-    for (int k = lane; k < d; k += 32) {
-      const float uk = u[k];
-      const float* qk = qs + k * kMaxB;
-#pragma unroll
-      for (int b = 0; b < kMaxB; ++b) acc[b] = fmaf(uk, qk[b], acc[b]);
-    }
-    // xor butterfly: every lane ends with bitwise the same sums
-#pragma unroll
-    for (int b = 0; b < kMaxB; ++b)
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[b] += __shfl_xor_sync(kFull, acc[b], off);
-
     const float* t = thr + (size_t)user * tau;
-    int cnt[kMaxB];
+    // the first chunk of thresholds does not depend on the scores: its
+    // loads go out now and overlap those of the user row
+    float tv[kTChunk];
+    if constexpr (NB > 1) {
 #pragma unroll
-    for (int b = 0; b < kMaxB; ++b) cnt[b] = 0;
-    for (int j = lane; j < tau; j += 32) {
-      const float tj = t[j];
-#pragma unroll
-      for (int b = 0; b < kMaxB; ++b) cnt[b] += (tj <= acc[b]) ? 1 : 0;
+      for (int i = 0; i < kTChunk; ++i) {
+        const int j = lane + 32 * i;
+        tv[i] = j < tau ? t[j] : 0.f;
+      }
     }
+    float acc[NB];
 #pragma unroll
-    for (int b = 0; b < kMaxB; ++b)
+    for (int b = 0; b < NB; ++b) acc[b] = 0.f;
+    for (int k0 = 0; k0 < d; k0 += 32 * kUChunk) {
+      float uv[kUChunk];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        cnt[b] += __shfl_xor_sync(kFull, cnt[b], off);
+      for (int i = 0; i < kUChunk; ++i) {
+        const int k = k0 + lane + 32 * i;
+        uv[i] = k < d ? u[k] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kUChunk; ++i) {
+        const int k = k0 + lane + 32 * i;
+        if (k < d) {
+          const float* qk = qs + k * kStride;
+          float qv[NB];
+          if constexpr (NB >= 4) {
+#pragma unroll
+            for (int c = 0; c < NB / 4; ++c) {
+              const float4 x = reinterpret_cast<const float4*>(qk)[c];
+              qv[4 * c] = x.x;
+              qv[4 * c + 1] = x.y;
+              qv[4 * c + 2] = x.z;
+              qv[4 * c + 3] = x.w;
+            }
+          } else {
+#pragma unroll
+            for (int b = 0; b < NB; ++b) qv[b] = qk[b];
+          }
+#pragma unroll
+          for (int b = 0; b < NB; ++b) acc[b] = fmaf(uv[i], qv[b], acc[b]);
+        }
+      }
+    }
+    halve<NB, NB, 16>(acc, lane);
+    const float s = acc[0];  // u·q_{my_b}
 
-    float s = 0.f;
     int idx = 0;
+    if constexpr (NB == 1) {
+      // one query: probe the last threshold of each of 16 segments, then
+      // count inside the segment that holds s — about 1/16 of the row
+      const int g = (tau + 15) / 16;
+      const int p = (lane + 1) * g - 1;
+      const bool below = lane < 16 && p < tau && t[p] <= s;
+      const int base = __popc(__ballot_sync(kFull, below)) * g;
+      const int end = min(base + g, tau);
+      idx = base;
+      for (int j0 = base; j0 < end; j0 += 32) {
+        const int j = j0 + lane;
+        idx += __popc(__ballot_sync(kFull, j < end && t[j] <= s));
+      }
+    } else {
+      // several queries: each chunk of the row, staged in shared memory,
+      // gives its count #{t_j <= s} by a branchless binary search
+      for (int j0 = 0;;) {
+        const int len = min(kTile, tau - j0);
+        __syncwarp();  // the previous chunk's searches are done
 #pragma unroll
-    for (int b = 0; b < kMaxB; ++b)
-      if (b == lane) { s = acc[b]; idx = cnt[b]; }
-    if (lane < B) {
+        for (int i = 0; i < kTChunk; ++i) ts[lane + 32 * i] = tv[i];
+        __syncwarp();
+        int pos = 0;
+#pragma unroll
+        for (int step = kTile; step > 0; step >>= 1)
+          if (pos + step <= len && ts[pos + step - 1] <= s) pos += step;
+        idx += pos;
+        j0 += kTile;
+        if (j0 >= tau) break;
+#pragma unroll
+        for (int i = 0; i < kTChunk; ++i) {
+          const int j = j0 + lane + 32 * i;
+          tv[i] = j < tau ? t[j] : 0.f;
+        }
+      }
+    }
+
+    if (finisher) {
       const float* tb = tab + (size_t)user * tau;
       const int up_col = min(max(idx - 1, 0), tau - 1);
       const int lo_col = min(idx, tau - 1);
@@ -105,12 +210,29 @@ bound_ranks_kernel(const float* __restrict__ U, const float* __restrict__ Q,
       float e = interior ? est_in : (idx == tau ? est_above : est_below);
       e = fminf(fmaxf(e, rlo), rup);
       e = e - 0.5f * m_above / (1.f + m_above);
-      const size_t o = (size_t)user * ldo + lane;
+      const size_t o = (size_t)user * ldo + my_b;
       r_lo[o] = rlo;
       r_up[o] = rup;
       est[o] = e;
     }
   }
+}
+
+template <int NB>
+int launch(const float* U, const float* Q, const float* thr,
+           const float* tab, float* r_lo, float* r_up, float* est, int n,
+           int d, int B, int tau, int ldo, float m_plus_1,
+           cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int want = (n + kWarps - 1) / kWarps;
+  const int blocks = want < sms * 8 ? want : sms * 8;
+  const size_t smem =
+      ((size_t)d * q_stride<NB>() + kWarps * kTile) * sizeof(float);
+  bound_ranks_kernel<NB><<<blocks, kWarps * 32, smem, stream>>>(
+      U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo, m_plus_1);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -123,15 +245,21 @@ extern "C" int k1_bound_ranks(const float* U, const float* Q,
                               float m_plus_1, void* stream) {
   if (n <= 0 || B <= 0) return 0;
   if (B > kMaxB || tau < 1) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int want = (n + kWarps - 1) / kWarps;
-  const int blocks = want < sms * 8 ? want : sms * 8;
-  const size_t smem = (size_t)d * kMaxB * sizeof(float);
-  bound_ranks_kernel<<<blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo, m_plus_1);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (B == 1)
+    return launch<1>(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
+                     m_plus_1, st);
+  if (B == 2)
+    return launch<2>(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
+                     m_plus_1, st);
+  if (B <= 4)
+    return launch<4>(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
+                     m_plus_1, st);
+  if (B <= 8)
+    return launch<8>(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
+                     m_plus_1, st);
+  return launch<16>(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
+                    m_plus_1, st);
 }
 
 extern "C" const char* repro_error_string(int code) {

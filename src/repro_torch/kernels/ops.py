@@ -106,7 +106,8 @@ def build_table_rows(users: torch.Tensor, samples: torch.Tensor,
                          f"{tuple(weights.shape)}, thresholds "
                          f"{tuple(thresholds.shape)}")
     if dev.type == "cpu":
-        return ref.ref_table_rows(users, samples, weights, thresholds)
+        return ref.estimate_table_rows(users @ samples.T, weights,
+                                       thresholds)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     table_build.check_shape(d, S)
@@ -116,13 +117,14 @@ def build_table_rows(users: torch.Tensor, samples: torch.Tensor,
     return out
 
 
-def exact_ranks(users: torch.Tensor, items: torch.Tensor, q: torch.Tensor
-                ) -> torch.Tensor:
+def exact_ranks(users: torch.Tensor, items: torch.Tensor, q: torch.Tensor,
+                *, block: int = 4096) -> torch.Tensor:
     """K3: Definition-1 ranks 1 + #{p : u·p > u·q} → (n,) int32.
 
     users (n, d), items (m, d), q (d,), all f32. The kernel computes u·q
     by the same loop as every u·p, so for q ∈ P the item equal to q
-    never counts against itself.
+    never counts against itself. `block` is the user-block size of the
+    plain version on the CPU.
     """
     dev = users.device
     _check("users", users, 2, dev)
@@ -133,7 +135,7 @@ def exact_ranks(users: torch.Tensor, items: torch.Tensor, q: torch.Tensor
         raise ValueError(f"shape mismatch: users {tuple(users.shape)}, "
                          f"items {tuple(items.shape)}, q {tuple(q.shape)}")
     if dev.type == "cpu":
-        return 1 + ref.ref_exact_counts(users, items, q)
+        return 1 + ref.ref_exact_counts(users, items, q, block=block)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     exact_rank.check_shape(d)

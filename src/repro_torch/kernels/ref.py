@@ -1,8 +1,11 @@
 """Plain PyTorch versions of the three kernels on the main path.
 
-The CPU path of every wrapper in `ops.py`, and what the tests and the
-chip smoke run hold each CUDA kernel against. Each computes the same
-function as its kernel; none is a yardstick of speed.
+The CPU path of every wrapper in `ops.py` (`ref_bound_ranks`,
+`estimate_table_rows`, `ref_exact_counts`), and what the tests and the
+chip smoke run hold each CUDA kernel against. `ref_table_rows` computes
+Eq. (1) a second way, by direct comparison, as an independent check of
+K2 and of `estimate_table_rows`. Each computes the same function as its
+kernel; none is a yardstick of speed.
 """
 from __future__ import annotations
 
@@ -19,6 +22,23 @@ def ref_bound_ranks(users: torch.Tensor, qs: torch.Tensor,
     lookup. Returns (r_lo, r_up, est), each (n, B) f32, user-major."""
     scores = users @ qs.T
     return lookup_bounds_batch(RankTable(thresholds, table, m), scores)
+
+
+def estimate_table_rows(scores: torch.Tensor, weights: torch.Tensor,
+                        thresholds: torch.Tensor) -> torch.Tensor:
+    """Eq. (1) by sort + weighted suffix sum, for (n, S) scores, (S,)
+    weights and (n, τ) ascending thresholds → (n, τ) f32 rows
+    1 + Σ_s w_s·I[score_s > t_j], non-increasing along j."""
+    scores_sorted, order = torch.sort(scores, dim=1, stable=True)
+    w_sorted = weights[order]
+    suffix = torch.cat(
+        [torch.flip(torch.cumsum(torch.flip(w_sorted, [1]), dim=1), [1]),
+         torch.zeros_like(w_sorted[:, :1])], dim=1)
+    # right=True: idx = #{scores <= t}, so the samples from idx on are
+    # strictly greater than t — the indicator u·p > t of Eq. (1).
+    idx = torch.searchsorted(scores_sorted, thresholds.contiguous(),
+                             right=True)
+    return 1.0 + torch.gather(suffix, 1, idx)
 
 
 def ref_table_rows(users: torch.Tensor, samples: torch.Tensor,

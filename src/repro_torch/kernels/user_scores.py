@@ -6,8 +6,9 @@ Replaces the TPU kernel `repro/kernels/user_scores.py`
 CUDA source is `csrc/user_scores.cu`; the public wrapper with its checks
 and launch count is `ops.bound_ranks_batched`.
 
-Bound on the card: memory — U and the thresholds are read once per
-launch, for all of its queries.
+Bound on the card: memory — U once, and per user and query the few
+threshold and table sectors that a search touches. This kernel reads
+each thresholds row whole, once for all the queries of a launch.
 """
 from __future__ import annotations
 
@@ -16,13 +17,15 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_B = 16                       # queries per launch (kMaxB in the source)
-_SMEM = 48 * 1024                # Qᵀ lives in default shared memory
+_Q_STRIDE = MAX_B + 4            # floats per row of Qᵀ in shared memory
+_T_TILES = 8 * 512               # a 512-float thresholds tile per warp
+_SMEM = 48 * 1024                # both live in default shared memory
 
 
 def check_shape(d: int) -> None:
-    if d * MAX_B * 4 > _SMEM:
+    if (d * _Q_STRIDE + _T_TILES) * 4 > _SMEM:
         raise ValueError(f"K1 keeps Qᵀ in shared memory: d={d} exceeds "
-                         f"{_SMEM // (MAX_B * 4)}")
+                         f"{(_SMEM // 4 - _T_TILES) // _Q_STRIDE}")
 
 
 def bound_ranks_batched_kernel_call(users: torch.Tensor, qs: torch.Tensor,

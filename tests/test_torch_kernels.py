@@ -138,14 +138,16 @@ def test_table_rows_match_reference(n, S, tau, dyadic):
 
 
 def test_table_rows_match_sorted_estimator():
-    """The direct-count plain version equals the build's sort + suffix
-    path on the same scores."""
+    """The direct-count version `ref_table_rows` equals the sort + suffix
+    path that the wrapper runs on the CPU, on the same scores."""
     from repro_torch.core.rank_table import estimate_table_rows
     users, samples, weights, thr = _table_inputs(3, 150, 48, 50, True)
-    got = ops.build_table_rows(_t(users), _t(samples), _t(weights), _t(thr))
+    got = ref.ref_table_rows(_t(users), _t(samples), _t(weights), _t(thr))
     want = estimate_table_rows(_t(users) @ _t(samples).T, _t(weights),
                                _t(thr))
     assert torch.equal(got, want)
+    assert torch.equal(ops.build_table_rows(_t(users), _t(samples),
+                                            _t(weights), _t(thr)), want)
 
 
 @pytest.mark.parametrize("n,m", [(300, 700), (64, 100)])
@@ -219,7 +221,7 @@ def test_kernel_matches_plain_on_card(kernel):
                  ).float().to(dev)
         tab = torch.flip(torch.cumsum(torch.rand(1000, 37, device=dev),
                                       1), [1]).contiguous() + 1.0
-        for B in (1, 3, 16, 19):
+        for B in (1, 2, 3, 6, 16, 19):
             qs = P[:B].contiguous()
             got = ops.bound_ranks_batched(U, qs, thr, tab, m=777)
             want = ref.ref_bound_ranks(U, qs, thr, tab, 777)
