@@ -6,10 +6,11 @@
 Phases, each fatal on failure (exit code 1, no result line):
 
   1. device line: the card's name and power limit, torch and CUDA;
-  2. build K1-K3 from `src/repro_torch/kernels/csrc/*.cu` with nvcc;
+  2. build K1-K5 from `src/repro_torch/kernels/csrc/*.cu` with nvcc;
   3. each kernel against its plain PyTorch version on the card at ragged
-     shapes, and the port's engine on the card against the same engine
-     on the CPU at a small size;
+     shapes (K4/K5 on integer inputs, where they must agree exactly, with
+     stored and with raw f32 users), and the port's engine on the card
+     against the same engine on the CPU at a small size, at each spec;
   4. the main path at the paper's Netflix size (n = 480,189 users,
      m = 17,770 items, d = 200; tau = 500, omega = 10, s = 64), on
      synthetic embeddings from a seed: Algorithm 1 build on the fused
@@ -17,6 +18,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      exact grading of those queries through K3 with the §5 accuracy and
      overall ratio, held against the dense backend. The launch counts are
      zeroed just before and read just after; each kernel must have run;
+  4b. the storage tier on the same data: builds at bf16 and int8 with the
+     f32 build's samples (K2), whose packs must equal `pack_table` /
+     `pack_users` of the f32 arrays; query_batch and query on the fused
+     backend (K4, K5) and on dense; certified containment of every
+     (query, user) bound in the f32 engine's K1 bounds; the §5 metrics
+     against the exact ranks of phase 4; memory_bytes. Its own launch
+     counts, zeroed before and read after; K4 and K5 must have run;
   5. each kernel against its plain version on the main path's inputs,
      and their times beside the card's bound.
 
@@ -27,6 +35,14 @@ or a count differs, the plain score must lie within eps of the threshold
 (K1, K2) or of u·q (K3). Everywhere else r_lo, r_up, the table and the
 ranks are exact, and est agrees to 1e-5 relative plus its sensitivity to
 a score error of eps.
+
+K4 and K5 at Netflix size follow the bracketing rule: their scores come
+from another summation order than the plain version's (eps as above, on
+the dequantized rows), so where a bound differs, the kernel's r_lo/r_up
+must lie between the plain version's at score - eps and score + eps; est
+must lie between the plain version's at the two ends (1e-5 relative)
+where neither index moves between them, and in [r_lo - 0.5, r_up]
+elsewhere.
 
 The last lines are a JSON object of per-kernel numbers, the nvidia-smi
 name and power limit, and the result object.
@@ -229,6 +245,108 @@ def selections_agree(torch, query_mod, fused, dense, f_bounds, d_bounds,
     return n_diff, tol
 
 
+def check_quant_exact(torch, ops, ref, Q, users, qs, rt, label):
+    """K4/K5 against the plain version on integer inputs: exact scores
+    and slacks, so r_lo/r_up agree bitwise and est to 1e-5 relative."""
+    rows, uscale, uslack = ops.stored_parts(users, rt.spec_kind)
+    got = [x.T for x in ops.bound_ranks_batched_stored(users, qs, rt)]
+    want = ref.ref_bound_ranks_stored(rows, uscale, uslack, qs,
+                                      Q.query_l1(qs), rt)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{label}: bounds differ from the plain version on integer "
+          "inputs")
+    err = (got[2] - want[2]).abs()
+    check(bool((err <= 1e-5 * want[2].abs()).all()),
+          f"{label}: est beyond 1e-5 relative (max err {float(err.max())})")
+    return got
+
+
+def check_quant(torch, ops, ref, Q, users, qs, rt, label):
+    """K4/K5 against the plain version under the bracketing rule (module
+    docstring). Returns (max abs err over all cells, cells that differ)."""
+    rows, uscale, uslack = ops.stored_parts(users, rt.spec_kind)
+    got = [x.T for x in ops.bound_ranks_batched_stored(users, qs, rt)]
+    qn = Q.query_l1(qs)
+    want = ref.ref_bound_ranks_stored(rows, uscale, uslack, qs, qn, rt)
+    torch.cuda.synchronize()
+    tau = rt.tau
+    deq = rows.to(torch.float32)
+    if uscale is not None:
+        deq = deq * uscale
+    eps = 2.0 * (rows.shape[1] + 1) * U24 * (deq.abs() @ qs.abs().T)
+    del deq
+    scores = Q._dequant_matmul(rows, uscale, qs)
+    slack = uslack * qn[None, :]
+    indices, bounds = {"bf16": (Q.bf16_indices, Q.bf16_bounds),
+                       "int8": (Q.int8_indices, Q.int8_bounds)}[rt.spec_kind]
+    ends = []
+    for sgn in (-1.0, 1.0):
+        uq = scores + sgn * eps
+        idx = indices(rt, uq, slack)
+        ends.append((idx, bounds(rt, *idx),
+                     Q.lookup_bounds_batch(rt, uq, slack)[2]))
+    (ia, (lo_a, up_a), e_a), (ib, (lo_b, up_b), e_b) = ends
+    inf = torch.full_like(lo_a, float("inf"))
+    # r_lo over idx_hi in [ia_hi, ib_hi] and r_up over idx_lo in
+    # [ia_lo, ib_lo]: the table part is monotone, and the out-of-grid
+    # values (1 at idx_hi = tau, m+1 at idx_lo = 0) are the two ends,
+    # so the extremes are the ends and the last (first) table column
+    lo_c = bounds(rt, ia[0], ib[1].clamp(max=tau - 1))[0]
+    up_c = bounds(rt, ia[0].clamp(min=1), ib[1])[1]
+    has_c = ia[1] < tau
+    has_d = ib[0] >= 1
+    lo_min = torch.minimum(torch.minimum(lo_a, lo_b),
+                           torch.where(has_c, lo_c, inf))
+    lo_max = torch.maximum(torch.maximum(lo_a, lo_b),
+                           torch.where(has_c, lo_c, -inf))
+    up_min = torch.minimum(torch.minimum(up_a, up_b),
+                           torch.where(has_d, up_c, inf))
+    up_max = torch.maximum(torch.maximum(up_a, up_b),
+                           torch.where(has_d, up_c, -inf))
+    differ = (got[0] != want[0]) | (got[1] != want[1])
+    outside = ((got[0] < lo_min) | (got[0] > lo_max)
+               | (got[1] < up_min) | (got[1] > up_max))
+    check(not bool((differ & outside).any()),
+          f"{label}: {int((differ & outside).sum())} bound mismatches "
+          "outside the plain version's bounds at score -/+ eps")
+    stable = (ia[0] == ib[0]) & (ia[1] == ib[1])
+    tol = 1e-5 * torch.maximum(e_a.abs(), e_b.abs())
+    e_bad = stable & ((got[2] < torch.minimum(e_a, e_b) - tol)
+                      | (got[2] > torch.maximum(e_a, e_b) + tol))
+    e_bad |= ~stable & ((got[2] < got[0] - 0.5 - 1e-4)
+                        | (got[2] > got[1] + 1e-4))
+    check(not bool(e_bad.any()),
+          f"{label}: {int(e_bad.sum())} est cells outside the rule")
+    for x in got:
+        check(bool(torch.isfinite(x).all()), f"{label}: non-finite output")
+    max_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    print(f"  {label}: n={rows.shape[0]} d={rows.shape[1]} tau={tau} "
+          f"B={qs.shape[0]}: {int(differ.sum())} of {differ.numel()} cells "
+          f"with a bound that differs, all bracketed; {int((~stable).sum())}"
+          f" cells with an index within eps of a step; max abs err "
+          f"{max_err:.3g}")
+    return max_err, int(differ.sum())
+
+
+def check_containment(torch, res, want, label):
+    """Certified containment of a spec's bounds in the f32 bounds on
+    every (query, user), and of its order statistics, to 1e-4."""
+    over_lo = res.r_lo - want.r_lo            # must be <= 1e-4
+    under_up = want.r_up - res.r_up           # must be <= 1e-4
+    n_bad = int((over_lo > 1e-4).sum()) + int((under_up > 1e-4).sum())
+    stats_ok = (bool((res.R_lo_k <= want.R_lo_k + 1e-4).all())
+                and bool((res.R_up_k >= want.R_up_k - 1e-4).all()))
+    margin = max(float(over_lo.max()), float(under_up.max()))
+    print(f"  containment {label}: {n_bad} violations in "
+          f"{over_lo.numel()} cells; largest r_lo - r_lo(f32) or "
+          f"r_up(f32) - r_up {margin:.3g}; mean widening of r_lo "
+          f"{float(-over_lo.mean()):.3g} and of r_up "
+          f"{float(-under_up.mean()):.3g} ranks; order statistics "
+          f"bracketed: {stats_ok}")
+    check(n_bad == 0 and stats_ok, f"containment {label} fails")
+
+
 # ------------------------------------------------------------ main path
 def main() -> int:
     t_start = time.perf_counter()
@@ -338,6 +456,34 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
             print(f"  K3 ragged ({what}): n={n} m={m} d={d}: {n_diff} "
                   f"ranks differ, all explained; max abs err {err}")
 
+    print("phase: K4/K5 vs plain, ragged shapes, integer inputs")
+    Q = query_mod
+    users = torch.randint(-4, 5, (1000, 37), generator=g, device=dev).float()
+    items = torch.randint(-4, 5, (777, 37), generator=g, device=dev).float()
+    for spec in ("bf16", "int8"):
+        for tau in (37, 777):
+            cfg = RankTableConfig(tau=tau, omega=4, s=16, storage_dtype=spec)
+            rt = rt_mod.build_rank_table(users, items, cfg, g)
+            su = cfg.storage.pack_users(users)
+            check(rt.spec_kind == spec, f"{spec} build packed {rt.spec_kind}")
+            for u, what in ((su, "stored"), (users, "raw f32")):
+                first = None
+                for nb in (1, 2, 3, 6, 16, 19):
+                    qs = items[torch.arange(nb, device=dev) * 5 % 777]
+                    got = check_quant_exact(
+                        torch, ops, ref, Q, u, qs.contiguous(), rt,
+                        f"{spec} tau={tau} {what} B={nb}")
+                    # query 0 must come out bitwise the same at every B
+                    got = [x[:, 0] for x in got]
+                    first = got if first is None else first
+                    check(all(torch.equal(a, b) for a, b in zip(got, first)),
+                          f"{spec} ragged: query 0 at B={nb} differs from "
+                          "B=1")
+            print(f"  {spec} (K{4 if spec == 'bf16' else 5}): n=1000 d=37 "
+                  f"tau={tau}, B in 1,2,3,6,16,19, stored and raw f32 "
+                  "users: bounds exact, est within 1e-5, query 0 bitwise "
+                  "the same at every B")
+
     print("phase: engine on the card vs the same engine on the CPU")
     users, items = synthetic_embeddings(3, 2048, 1024, 32, device=dev)
     cfg = RankTableConfig(tau=64)
@@ -357,6 +503,23 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
                                  bounds[dev.type], bounds["cpu"], K, C, 1024)
     print(f"  small engine (n=2048, m=1024, d=32, tau=64, B=8): {n_diff} "
           "users selected on one device only, all explained")
+    for spec in ("bf16", "int8"):
+        cfg = RankTableConfig(tau=64, storage_dtype=spec)
+        res, bounds = {}, {}
+        for where in (dev, torch.device("cpu")):
+            eng = ReverseKRanksEngine.build(
+                users, items, cfg, None, backend="fused", device=where,
+                positions=pos.to(where), weights=w.to(where))
+            out = eng.query_batch(qs.to(where), K, C)
+            res[where.type] = type(out)(*(x.to(dev) for x in out))
+            bounds[where.type] = [
+                x.to(dev) for x in ops.bound_ranks_batched_stored(
+                    eng.stored_users, qs.to(where), eng.rank_table)]
+        n_diff, _ = selections_agree(torch, query_mod, res[dev.type],
+                                     res["cpu"], bounds[dev.type],
+                                     bounds["cpu"], K, C, 1024)
+        print(f"  small engine at {spec}: {n_diff} users selected on one "
+              "device only, all explained")
 
     # 4. main path at Netflix scale
     print(f"phase: main path, n={N} m={M} d={D} tau={TAU} omega={OMEGA} "
@@ -398,8 +561,9 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
     exact_s = time.perf_counter() - t0
     counts = dict(ops.LAUNCHES)
     print(f"  launches on the main path: {counts}")
-    for name, cnt in counts.items():
-        check(cnt >= 1, f"kernel {name} was not launched on the main path")
+    for name in ("k1_bound_ranks", "k2_table_build", "k3_exact_ranks"):
+        check(counts[name] >= 1,
+              f"kernel {name} was not launched on the main path")
     mem = eng.memory_bytes()
     print(f"  build {build_s:.3f} s (host clock, incl. sort, sampling and "
           f"the K2 launch); query_batch(B={B}) {qb_ms:.2f} ms; query "
@@ -457,6 +621,129 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
         *f_bounds, k=K, c=C, m_items=M), reps=10)
     print(f"  steady state: query_batch(B={B}) {qb_steady:.3f} ms, of which "
           f"selection {sel_steady:.3f} ms; query {q1_steady:.3f} ms")
+
+    # 4b. the storage tier on the same data
+    print(f"phase: storage tier, bf16 and int8, same data and samples, "
+          f"B={B}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tier = {}
+    for spec in ("bf16", "int8"):
+        cfg_s = RankTableConfig(tau=TAU, omega=OMEGA, s=S_PER,
+                                storage_dtype=spec)
+        t0 = time.perf_counter()
+        eng_s = ReverseKRanksEngine.build(users, items, cfg_s, None,
+                                          backend="fused", device=dev,
+                                          positions=pos, weights=w)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res_s = eng_s.query_batch(qs, K, C)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res1_s = eng_s.query(items[QUERY_ITEM], K, C)
+        dense_s = ReverseKRanksEngine(users, eng_s.rank_table, cfg_s,
+                                      backend="dense")
+        res_sd = dense_s.query_batch(qs, K, C)
+        res1_sd = dense_s.query(items[QUERY_ITEM], K, C)
+        torch.cuda.synchronize()
+        tier[spec] = dict(cfg=cfg_s, eng=eng_s, dense=dense_s, res=res_s,
+                          res1=res1_s, res_d=res_sd, res1_d=res1_sd,
+                          build_s=t1 - t0, qb_ms=(t2 - t1) * 1e3)
+    counts_q = dict(ops.LAUNCHES)
+    peak_tier = torch.cuda.max_memory_allocated()
+    print(f"  launches on the storage-tier path: {counts_q}")
+    for name in ("k2_table_build", "k4_bound_ranks_bf16",
+                 "k5_bound_ranks_int8"):
+        check(counts_q[name] >= 1,
+              f"kernel {name} was not launched on the storage-tier path")
+    print(f"  peak allocated over the storage-tier path (both specs' "
+          f"builds and queries, beside the f32 engine) "
+          f"{peak_tier / 1e9:.2f} GB")
+
+    for spec, t in tier.items():
+        cfg_s, eng_s, res_s, res_sd = t["cfg"], t["eng"], t["res"], t["res_d"]
+        packed = cfg_s.storage.pack_table(rt.thresholds, rt.table, m=M)
+        for f in packed._fields:
+            a, b = getattr(eng_s.rank_table, f), getattr(packed, f)
+            check(a == b if f == "m" else (a is None and b is None)
+                  or torch.equal(a, b),
+                  f"{spec}: rank table field {f} is not pack_table of the "
+                  "f32 build's arrays")
+        su_want = cfg_s.storage.pack_users(users)
+        for f in su_want._fields:
+            a, b = getattr(eng_s.stored_users, f), getattr(su_want, f)
+            check((a is None and b is None) or torch.equal(a, b),
+                  f"{spec}: stored users field {f} is not pack_users")
+        del packed, su_want
+        mem_s = eng_s.memory_bytes()
+        expect = {"bf16": N * (4 * TAU + 2 * D + 4),
+                  "int8": N * (2 * TAU + 5 * 4 + D + 2 * 4)}[spec]
+        print(f"  {spec}: build {t['build_s']:.3f} s (host clock, K2 + "
+              f"pack), packs equal pack_table/pack_users of the f32 "
+              f"arrays; first query_batch {t['qb_ms']:.2f} ms; "
+              f"memory_bytes {mem_s} ({mem_s / mem:.3f} of f32's {mem})")
+        check(mem_s == expect, f"{spec}: memory_bytes {mem_s} != {expect}")
+
+        check(res_s.indices.shape == (B, K), f"{spec}: indices shape")
+        for r in (res_s, res_sd):
+            for f in ("est_rank", "r_lo", "r_up", "R_lo_k", "R_up_k"):
+                check(bool(torch.isfinite(getattr(r, f)).all()),
+                      f"{spec}: non-finite {f}")
+        kid = 4 if spec == "bf16" else 5
+        check_containment(torch, res_s, res, f"{spec} fused (K{kid}) vs "
+                          "f32 K1")
+        check_containment(torch, res_sd, res, f"{spec} dense vs f32 K1")
+        # K4/K5 compute each query's score the same way at any B, so the
+        # fused query(q) is row 0 of query_batch wherever ‖q‖₁ comes out
+        # of the reduction the same for one query as for 16 (the dense
+        # path's product is not bitwise across B)
+        same_l1 = bool(query_mod.query_l1(qs)[0]
+                       == query_mod.query_l1(qs[:1])[0])
+        r1 = t["res1"]
+        if same_l1:
+            check(torch.equal(r1.indices, res_s.indices[0])
+                  and torch.equal(r1.r_lo, res_s.r_lo[0])
+                  and torch.equal(r1.r_up, res_s.r_up[0])
+                  and torch.equal(r1.est_rank, res_s.est_rank[0]),
+                  f"{spec}: query(q) differs from row 0 of query_batch")
+        dense_row0 = bool(torch.equal(t["res1_d"].indices,
+                                      res_sd.indices[0]))
+        su = eng_s.stored_users
+        f_b = ops.bound_ranks_batched_stored(su, qs, eng_s.rank_table)
+        d_b = query_mod.bound_ranks_batch(eng_s.rank_table, su, qs)
+        n_diff, tol_s = selections_agree(torch, query_mod, res_s, res_sd,
+                                         f_b, d_b, K, C, M)
+        del f_b, d_b
+        accs, ratios = {"fused": [], "dense": []}, {"fused": [], "dense": []}
+        for b in range(B):
+            tr = truth[b].cpu().numpy()
+            ex = exact_idx[b].cpu().numpy()
+            for name, r in (("fused", res_s), ("dense", res_sd)):
+                idx_b = r.indices[b].cpu().numpy()
+                accs[name].append(metrics.accuracy(idx_b, ex, tr, C))
+                ratios[name].append(metrics.overall_ratio(idx_b, ex, tr))
+        for a, r in zip(accs["fused"], ratios["fused"]):
+            check(0.0 <= a <= 1.0 and r >= 1.0 and r == r,
+                  f"{spec}: metrics out of range")
+        print(f"  {spec} fused vs dense: {n_diff} users selected by one "
+              f"backend only, all explained (est tolerance {tol_s:.3g}); "
+              f"§5 fused: accuracy {mean(accs['fused']):.4f} overall ratio "
+              f"{mean(ratios['fused']):.4f}; dense: accuracy "
+              f"{mean(accs['dense']):.4f} overall ratio "
+              f"{mean(ratios['dense']):.4f} (graded by phase 4's K3 ranks); "
+              f"guaranteed in {int(res_s.guaranteed.sum())} of {B}; item "
+              f"{QUERY_ITEM}: {r1.indices.tolist()}; fused query(q) = row "
+              f"0 of query_batch checked: {same_l1}; dense query(q) selects "
+              f"row 0's users: {dense_row0}")
+        qb_st = time_ms(torch, lambda: eng_s.query_batch(qs, K, C), reps=10)
+        q1_st = time_ms(torch, lambda: eng_s.query(items[QUERY_ITEM], K, C),
+                        reps=10)
+        qb_dn = time_ms(torch, lambda: t["dense"].query_batch(qs, K, C),
+                        reps=5)
+        print(f"  {spec} steady state: fused query_batch(B={B}) "
+              f"{qb_st:.3f} ms, query {q1_st:.3f} ms; dense query_batch "
+              f"{qb_dn:.3f} ms")
 
     # 5. kernels against plain versions on the main path's inputs, timed
     print("phase: kernels vs plain at the main path's shapes, timed")
@@ -535,6 +822,37 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
     row("k3_exact_ranks", "src/repro/kernels/exact_rank.py:25",
         counts["k3_exact_ranks"], max(errs), ms, pms,
         4 * (N * D + M * D + D + N), 2 * N * M * D, src + "exact_rank.cu")
+
+    probes = math.ceil(math.log2(TAU))
+    for spec, name, line in (("bf16", "k4_bound_ranks_bf16", 295),
+                             ("int8", "k5_bound_ranks_int8", 347)):
+        eng_s = tier[spec]["eng"]
+        rt_s, su = eng_s.rank_table, eng_s.stored_users
+        rows, uscale, uslack = ops.stored_parts(su, spec)
+        for nb in (B, 1):
+            q = qs[:nb].contiguous()
+            qn = query_mod.query_l1(q)
+            err, _ = check_quant(torch, ops, ref, query_mod, su, q, rt_s,
+                                 f"{name} Netflix B={nb}")
+            ms = time_ms(torch, lambda: ops.bound_ranks_batched_stored(
+                su, q, rt_s), reps=20)
+            pms = time_ms(torch, lambda: ref.ref_bound_ranks_stored(
+                rows, uscale, uslack, q, qn, rt_s), reps=5)
+            # least bytes: the stored rows, the per-user vectors, Q and
+            # ‖q‖₁ once; per user the sectors a search and the table
+            # gathers touch (capped at the row), and the outputs
+            if spec == "bf16":
+                need = (2 * N * D + 4 * N
+                        + N * min(2 * TAU, 2 * nb * probes * 32)
+                        + N * min(2 * TAU, 2 * nb * 32))
+                flops = 2 * N * D * nb + 2 * N * nb * probes
+            else:
+                need = N * D + 28 * N + N * min(TAU, 2 * nb * 32)
+                flops = 2 * N * D * nb + 20 * N * nb
+            need += 4 * (nb * D + nb) + 12 * N * nb
+            row(f"{name}[B={nb}]", f"src/repro/kernels/user_scores.py:{line}",
+                counts_q[name], err, ms, pms, need, flops,
+                src + "user_scores_quant.cu")
     return out
 
 

@@ -4,8 +4,12 @@ Counterpart of `repro/core/backends.py`, with two registered backends:
 
   "dense" — plain PyTorch step 1 (`core.query`): one (n, d)×(d, B)
             product plus one pass over the table per batch;
-  "fused" — step 1 in the K1 kernel (`kernels.ops.bound_ranks_batched`)
-            on CUDA tensors; its plain version on CPU tensors.
+  "fused" — step 1 in a kernel (`kernels.ops.bound_ranks_batched_stored`:
+            K1 on an f32 table, K4 on bf16, K5 on int8) on CUDA
+            tensors; its plain version on CPU tensors.
+
+`users` is the raw (n, d) matrix at f32 storage and `StoredUsers` at
+bf16 and int8.
 
 `bound_ranks` takes a (B, d) block and returns (B, n) bounds; `select`
 realizes §4.3 steps 2-3; `query_batch` composes the two. Wrapper specs
@@ -113,8 +117,7 @@ class DenseBackend(QueryBackend):
 
 @register_backend("fused")
 class FusedBackend(QueryBackend):
-    """Step 1 in the K1 kernel on CUDA tensors."""
+    """Step 1 in the K1, K4 or K5 kernel on CUDA tensors."""
 
     def bound_ranks(self, rt, users, qs):
-        return ops.bound_ranks_batched(users, qs.contiguous(),
-                                       rt.thresholds, rt.table, m=rt.m)
+        return ops.bound_ranks_batched_stored(users, qs.contiguous(), rt)

@@ -2,8 +2,11 @@
 
 Counterpart of the static part of `repro/core/engine.py`: Algorithm 1
 (`build`) plus the batched §4.3 query on a backend chosen by name
-("dense" or "fused"). Snapshots, mutation and persistence are not ported
-yet (ROADMAP queue 1 item 7).
+("dense" or "fused"), at any storage spec. The f32 user matrix stays
+the system of record; queries scan its spec-space storage
+(`config.storage.pack_users`: None at f32, `StoredUsers` at bf16 and
+int8). Snapshots, mutation and persistence are not ported yet (ROADMAP
+queue 1 item 7).
 
     eng = ReverseKRanksEngine.build(users, items, RankTableConfig(),
                                     1, backend="fused")
@@ -32,6 +35,7 @@ class ReverseKRanksEngine:
         self.users = users
         self.rank_table = rank_table
         self.config = config
+        self.stored_users = config.storage.pack_users(users)
         self._backend = get_backend(backend)
 
     @classmethod
@@ -74,7 +78,9 @@ class ReverseKRanksEngine:
             raise ValueError(
                 f"query_batch expects (B, d) queries; got {tuple(qs.shape)}")
         qs = qs.to(device=self.users.device, dtype=torch.float32)
-        return self._backend.query_batch(self.rank_table, self.users,
+        users = (self.users if self.stored_users is None
+                 else self.stored_users)
+        return self._backend.query_batch(self.rank_table, users,
                                          qs.contiguous(), k=k, c=c)
 
     def query(self, q: torch.Tensor, k: int, c: float) -> QueryResult:
@@ -94,7 +100,16 @@ class ReverseKRanksEngine:
         return self.users.shape[1]
 
     def memory_bytes(self) -> int:
-        """Query-path storage: thresholds + table + the user matrix."""
-        sz = lambda a: a.numel() * a.element_size()
+        """Query-path storage, counted as the reference counts it:
+        thresholds + table + the int8 per-row parameters + the user
+        storage that the backends scan (stored rows, scale and slack when
+        quantized, the f32 matrix otherwise)."""
+        sz = lambda a: 0 if a is None else a.numel() * a.element_size()
         rt = self.rank_table
-        return sz(rt.thresholds) + sz(rt.table) + sz(self.users)
+        total = (sz(rt.thresholds) + sz(rt.table) + sz(rt.thr_scale)
+                 + sz(rt.thr_off) + sz(rt.tab_scale) + sz(rt.tab_off)
+                 + sz(rt.thr_dev))
+        su = self.stored_users
+        if su is None:
+            return total + sz(self.users)
+        return total + sz(su.rows) + sz(su.scale) + sz(su.row_slack)

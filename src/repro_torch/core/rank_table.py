@@ -1,4 +1,4 @@
-"""Rank-table pre-processing — Algorithm 1 of the paper, at f32.
+"""Rank-table pre-processing — Algorithm 1 of the paper.
 
 Counterpart of `repro/core/rank_table.py`, in three stages:
 
@@ -8,6 +8,9 @@ Counterpart of `repro/core/rank_table.py`, in three stages:
      on a CUDA tensor the K2 kernel, on the CPU its plain version, the
      sort + weighted suffix sum of `estimate_table_rows` (kept in
      `kernels/ref.py` beside the other plain versions).
+
+The build always estimates in f32; the storage spec then packs the
+result (`StorageSpec.pack_table`, the one pack path).
 
 The sampling RNG cannot match `jax.random`, so the build also takes
 explicit `positions`/`weights`, which the tests take from the reference.
@@ -100,7 +103,7 @@ def build_rank_table_sorted(users: torch.Tensor, items_sorted: torch.Tensor,
     del scores                          # stage 3 recomputes them
     thresholds = threshold_grid(smin, smax, cfg.tau).contiguous()
     table = ops.build_table_rows(users, samples, weights, thresholds)
-    return RankTable(thresholds=thresholds, table=table, m=m)
+    return cfg.storage.pack_table(thresholds, table, m=m)
 
 
 def sort_items_by_norm(items: torch.Tensor

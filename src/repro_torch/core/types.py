@@ -1,19 +1,178 @@
-"""Core data types of the port (f32 storage only).
+"""Core data types of the port.
 
 Counterpart of `repro/core/types.py`: the same configuration fields and
-validation, the same `RankTable` / `QueryResult` fields. Quantized
-storage (bf16, int8) is not ported yet (ROADMAP queue 1 item 6), so any
-`storage_dtype` other than f32 raises `NotImplementedError`.
+validation, the same `RankTable` / `QueryResult` / `StoredUsers` fields,
+and the storage tier (`StorageSpec`): f32, bf16, or int8 with per-row
+scales. A quantized table and quantized users carry certified errors
+that the query folds into its bounds, so that for every user and query
+
+    r↓_spec ≤ r↓_f32   and   r↑_spec ≥ r↑_f32
+
+(the reference's module docstring gives the proof obligation term by
+term). `pack_table` and `pack_users` are the one path from f32 arrays to
+stored ones. Its int8 codes, scales and offsets, its bf16 casts and its
+user rows are bitwise the reference's on the same inputs; `thr_dev` is
+measured against the grid rounded once from double (see `pack_table`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-_F32_NAMES = ("float32", "f32")
-_QUANT_NAMES = ("bf16", "bfloat16", "int8")
+# bf16 keeps 8 mantissa bits: a round-to-nearest cast is within 2^-9
+# relative; 2^-7 over-covers it, the reciprocal terms included.
+EPS_BF16 = 2.0 ** -7
+
+# int8 codes live in [-127, 127]; -128 is left free, as in the reference.
+_I8_MAX = 127.0
+
+# Extra widening of int8 comparisons, in quantization steps: covers the
+# f32 rounding of the (x - off) / scale transform.
+_I8_TRANSFORM_PAD = 1e-4
+
+_KINDS = {"f32": "f32", "float32": "f32", "bf16": "bf16",
+          "bfloat16": "bf16", "int8": "int8"}
+
+
+def f32_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """`value` rounded once to f32, as a 0-d tensor on `like`'s device.
+
+    A divisor must be a tensor: PyTorch's CUDA division by a Python
+    number multiplies by its f32 reciprocal, which is not the IEEE
+    quotient that the reference and the kernels compute."""
+    return torch.tensor(value, dtype=torch.float32, device=like.device)
+
+
+def _quant_affine_rows(x: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-row affine int8 quantization: codes in [-127, 127] with
+    x ≈ code·scale + offset, |error| ≤ scale/2. Returns (codes (n, τ)
+    int8, scale (n, 1) f32, offset (n, 1) f32)."""
+    lo = x.amin(dim=1, keepdim=True)
+    hi = x.amax(dim=1, keepdim=True)
+    off = 0.5 * (lo + hi)
+    scale = torch.clamp(hi - lo, min=1e-12) / f32_scalar(2.0 * _I8_MAX, x)
+    q = torch.clamp(torch.round((x - off) / scale), -_I8_MAX, _I8_MAX)
+    return q.to(torch.int8), scale, off
+
+
+def _int8_code_grid(tau: int, device) -> torch.Tensor:
+    """The uniform code grid -127 + j·254/(τ-1), j < τ, computed in
+    double and rounded once to f32 (1, τ)."""
+    j = torch.arange(tau, dtype=torch.float64, device=device)
+    return (-_I8_MAX + j * (2.0 * _I8_MAX / (tau - 1))).to(
+        torch.float32)[None, :]
+
+
+class StoredUsers(NamedTuple):
+    """Spec-space user matrix (bf16/int8 specs; f32 passes the raw array).
+
+    rows:      (n, d) bf16 or int8 stored rows.
+    scale:     (n, 1) f32 per-user symmetric scale, int8 only.
+    row_slack: (n, 1) f32 certified per-row score-error coefficient:
+               |score(stored) − score(f32)| ≤ row_slack · ‖q‖₁.
+    """
+
+    rows: torch.Tensor
+    scale: Optional[torch.Tensor]
+    row_slack: Optional[torch.Tensor]
+
+    @property
+    def shape(self):
+        return self.rows.shape
+
+
+def stored_rows(users) -> torch.Tensor:
+    """The raw row tensor of either a plain (n, d) tensor or StoredUsers."""
+    return users.rows if isinstance(users, StoredUsers) else users
+
+
+@dataclasses.dataclass(frozen=True)
+class StorageSpec:
+    """How the user matrix, thresholds and rank table are stored.
+
+    kind "f32": exact, the f32 query path unchanged; "bf16": bf16 rows
+    everywhere, bounds certified by a two-sided bucketize of the monotone
+    cast and EPS_BF16 widening; "int8": int8 rows with per-user scales
+    (symmetric for users, affine for thresholds and table), bounds
+    certified by half-step widening and a closed-form bucketize.
+    """
+
+    kind: str = "f32"
+
+    def __post_init__(self):
+        if self.kind not in ("f32", "bf16", "int8"):
+            raise ValueError(f"unknown StorageSpec kind {self.kind!r}; "
+                             "expected one of ('f32', 'bf16', 'int8')")
+
+    @classmethod
+    def parse(cls, spec) -> "StorageSpec":
+        """Coerce a StorageSpec, a kind, or a dtype name ("bfloat16")."""
+        if isinstance(spec, StorageSpec):
+            return spec
+        kind = _KINDS.get(str(spec))
+        if kind is None:
+            raise ValueError(f"unknown storage spec {spec!r}; expected "
+                             f"one of {sorted(_KINDS)}")
+        return cls(kind=kind)
+
+    @property
+    def is_exact(self) -> bool:
+        return self.kind == "f32"
+
+    @property
+    def table_dtype(self) -> torch.dtype:
+        return {"f32": torch.float32, "bf16": torch.bfloat16,
+                "int8": torch.int8}[self.kind]
+
+    def pack_table(self, thresholds: torch.Tensor, table: torch.Tensor,
+                   m: int = 0) -> "RankTable":
+        """Materialize f32 (n, τ) thresholds/table in spec space.
+
+        For int8, `thr_dev` is the largest deviation per row of the f32
+        threshold codes (t - off)/scale from the uniform code grid, so
+        that the query's closed-form bucketize is certified. The grid
+        here is rounded once from double; the reference builds it with
+        `jnp.linspace`, whose f32 values differ from it by up to ~1.5e-5
+        codes, so `thr_dev` agrees with the reference's to that, not
+        bitwise (the int8 codes, scales and offsets are bitwise equal).
+        """
+        thresholds = thresholds.to(torch.float32)
+        table = table.to(torch.float32)
+        if self.kind == "f32":
+            return RankTable(thresholds=thresholds, table=table, m=m)
+        if self.kind == "bf16":
+            return RankTable(thresholds=thresholds.to(torch.bfloat16),
+                             table=table.to(torch.bfloat16), m=m)
+        thr_q, thr_sc, thr_off = _quant_affine_rows(thresholds)
+        tab_q, tab_sc, tab_off = _quant_affine_rows(table)
+        grid = _int8_code_grid(thresholds.shape[1], thresholds.device)
+        thr_dev = ((thresholds - thr_off) / thr_sc - grid).abs().amax(
+            dim=1, keepdim=True)
+        return RankTable(thresholds=thr_q, table=tab_q, m=m,
+                         thr_scale=thr_sc, thr_off=thr_off,
+                         tab_scale=tab_sc, tab_off=tab_off, thr_dev=thr_dev)
+
+    def pack_users(self, users: torch.Tensor) -> Optional[StoredUsers]:
+        """Materialize the (n, d) user matrix in spec space; None for f32
+        (the raw matrix is the storage). `row_slack` bounds the score
+        error per unit of ‖q‖₁: scale/2 for int8, EPS_BF16·‖row‖∞ for
+        bf16."""
+        users = users.to(torch.float32)
+        if self.kind == "f32":
+            return None
+        if self.kind == "bf16":
+            rows = users.to(torch.bfloat16)
+            slack = EPS_BF16 * rows.to(torch.float32).abs().amax(
+                dim=1, keepdim=True)
+            return StoredUsers(rows=rows, scale=None, row_slack=slack + 1e-12)
+        scale = torch.clamp(users.abs().amax(dim=1, keepdim=True),
+                            min=1e-12) / f32_scalar(_I8_MAX, users)
+        rows = torch.clamp(torch.round(users / scale), -_I8_MAX, _I8_MAX)
+        return StoredUsers(rows=rows.to(torch.int8), scale=scale,
+                           row_slack=0.5 * scale)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,7 +184,7 @@ class RankTableConfig:
     f_min/f_max is obtained ("sampled", "norm_bound" or "exact");
     range_pad: fractional widening of the sampled range;
     sample_with_replacement: stratified sampling mode; storage_dtype:
-    the storage spec, f32 only in the port so far.
+    the storage spec ("float32"/"f32", "bfloat16"/"bf16" or "int8").
     """
 
     tau: int = 500
@@ -45,27 +204,37 @@ class RankTableConfig:
             raise ValueError(f"s must be >= 1, got {self.s}")
         if self.threshold_mode not in ("sampled", "norm_bound", "exact"):
             raise ValueError(f"unknown threshold_mode {self.threshold_mode!r}")
-        spec = str(self.storage_dtype)
-        if spec in _QUANT_NAMES:
-            raise NotImplementedError(
-                f"storage_dtype={spec!r}: quantized storage is not ported "
-                "yet (ROADMAP queue 1 item 6); use 'float32'")
-        if spec not in _F32_NAMES:
-            raise ValueError(f"unknown storage spec {spec!r}; expected one "
-                             f"of {sorted(_F32_NAMES + _QUANT_NAMES)}")
+        StorageSpec.parse(self.storage_dtype)   # raises on unknown specs
+
+    @property
+    def storage(self) -> StorageSpec:
+        """The parsed storage spec."""
+        return StorageSpec.parse(self.storage_dtype)
 
 
 class RankTable(NamedTuple):
     """The paper's rank table T (§4.1) plus its per-user thresholds.
 
-    thresholds: (n, tau) f32, ascending along axis 1.
-    table:      (n, tau) f32, non-increasing along axis 1 (Eq. 1).
+    thresholds: (n, tau), ascending along axis 1: f32, bf16, or int8
+                codes under the per-row affine (thr_scale, thr_off).
+    table:      (n, tau), non-increasing along axis 1 (Eq. 1): f32,
+                bf16, or int8 codes under (tab_scale, tab_off).
     m:          |P| as a Python int (the out-of-range upper bound is m+1).
+    thr_scale/thr_off/tab_scale/tab_off: (n, 1) f32 per-row affine
+                parameters, int8 only (None otherwise).
+    thr_dev:    (n, 1) f32, int8 only: the largest deviation of each
+                row's f32 thresholds from the uniform code grid, in code
+                units; it certifies the closed-form bucketize.
     """
 
     thresholds: torch.Tensor
     table: torch.Tensor
     m: int
+    thr_scale: Optional[torch.Tensor] = None
+    thr_off: Optional[torch.Tensor] = None
+    tab_scale: Optional[torch.Tensor] = None
+    tab_off: Optional[torch.Tensor] = None
+    thr_dev: Optional[torch.Tensor] = None
 
     @property
     def n(self) -> int:
@@ -74,6 +243,15 @@ class RankTable(NamedTuple):
     @property
     def tau(self) -> int:
         return self.thresholds.shape[1]
+
+    @property
+    def spec_kind(self) -> str:
+        """The storage kind, derived from the tensors themselves."""
+        if self.thr_scale is not None:
+            return "int8"
+        if self.thresholds.dtype == torch.bfloat16:
+            return "bf16"
+        return "f32"
 
 
 class QueryResult(NamedTuple):

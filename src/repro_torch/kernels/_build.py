@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("user_scores", "table_build", "exact_rank")
+SOURCES = ("user_scores", "user_scores_quant", "table_build", "exact_rank")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -36,6 +36,11 @@ F = ctypes.c_float
 SIGNATURES = {
     "user_scores": {"k1_bound_ranks": (P, P, P, P, P, P, P, I, I, I, I, I,
                                        F, P)},
+    "user_scores_quant": {
+        "k4_bound_ranks_bf16": (P, I, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                F, F, F, P),
+        "k5_bound_ranks_int8": (P, I, P, P, P, P, P, P, P, P, P, P, P, P, P,
+                                I, I, I, I, I, F, F, F, F, P)},
     "table_build": {"k2_table_build": (P, P, P, P, P, I, I, I, I, P)},
     "exact_rank": {"k3_exact_ranks": (P, P, P, P, I, I, I, P)},
 }

@@ -1,4 +1,4 @@
-"""Public wrappers of the CUDA kernels K1-K3.
+"""Public wrappers of the CUDA kernels K1-K5.
 
 Each wrapper checks dtype, shape, device and contiguity, then: for CPU
 tensors it runs the plain version in `ref.py`; for CUDA tensors it
@@ -10,11 +10,17 @@ can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.core.query import query_l1
+from repro_torch.core.types import RankTable, StoredUsers
 from repro_torch.kernels import exact_rank, ref, table_build, user_scores
 
-LAUNCHES = {"k1_bound_ranks": 0, "k2_table_build": 0, "k3_exact_ranks": 0}
+LAUNCHES = {"k1_bound_ranks": 0, "k2_table_build": 0, "k3_exact_ranks": 0,
+            "k4_bound_ranks_bf16": 0, "k5_bound_ranks_int8": 0}
+_QUANT_KERNEL = {"bf16": "k4_bound_ranks_bf16", "int8": "k5_bound_ranks_int8"}
 
 
 def reset_launch_counts() -> None:
@@ -22,9 +28,11 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def _check(name: str, t: torch.Tensor, ndim: int, device) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+def _check(name: str, t: torch.Tensor, ndim: int, device,
+           dtypes=(torch.float32,)) -> None:
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, "
+                        f"got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got shape "
                          f"{tuple(t.shape)}")
@@ -82,6 +90,90 @@ def bound_ranks(users: torch.Tensor, q: torch.Tensor,
     r_lo, r_up, est = bound_ranks_batched(users, q[None, :], thresholds,
                                           table, m=m)
     return r_lo[0], r_up[0], est[0]
+
+
+def stored_parts(users, kind: str
+                 ) -> tuple[torch.Tensor, Optional[torch.Tensor],
+                            torch.Tensor]:
+    """(rows, uscale, uslack) of either user representation for a table
+    of storage `kind`, the operands of K4 (no scale) or K5. Raw f32
+    users get zero slack, and unit scale against an int8 table, with
+    which the quantized lookup computes on the exact scores."""
+    rows, uscale, uslack = (users if isinstance(users, StoredUsers)
+                            else (users, None, None))
+    vec = lambda v: torch.full((rows.shape[0], 1), v, dtype=torch.float32,
+                               device=rows.device)
+    if kind == "int8" and uscale is None:
+        uscale = vec(1.0)
+    if uslack is None:
+        uslack = vec(0.0)
+    return rows, uscale, uslack
+
+
+def bound_ranks_batched_stored(users, qs: torch.Tensor, rt: RankTable
+                               ) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """The fused backend's step 1, dispatched on the table's storage.
+
+    An f32 table with raw users goes to K1 (`bound_ranks_batched`); an
+    f32 table with `StoredUsers` raises. A bf16 table goes to K4 and an
+    int8 table to K5, with `users` stored (`StoredUsers`) or raw f32
+    (unit scale, zero slack). ‖q‖₁ is computed here once, so that a
+    kernel and its plain version see the same slack. Returns (r_lo,
+    r_up, est), each (B, n), query-major. On CUDA, one launch per 16
+    queries.
+    """
+    kind = rt.spec_kind
+    if kind == "f32":
+        if isinstance(users, StoredUsers):
+            raise ValueError("quantized user storage requires a quantized "
+                             "rank table (uniform StorageSpec)")
+        return bound_ranks_batched(users, qs, rt.thresholds, rt.table,
+                                   m=rt.m)
+    rows, uscale, uslack = stored_parts(users, kind)
+    dev = rows.device
+    stored = torch.bfloat16 if kind == "bf16" else torch.int8
+    _check("rows", rows, 2, dev, (stored, torch.float32))
+    _check("qs", qs, 2, dev)
+    _check("table", rt.table, 2, dev, (stored,))
+    vectors = {"uslack": uslack}
+    if kind == "bf16":
+        _check("thresholds", rt.thresholds, 2, dev, (stored,))
+    else:
+        vectors.update(uscale=uscale, thr_scale=rt.thr_scale,
+                       thr_off=rt.thr_off,
+                       thr_dev=rt.thr_dev, tab_scale=rt.tab_scale,
+                       tab_off=rt.tab_off)
+    n, d = rows.shape
+    B = qs.shape[0]
+    tau = rt.tau
+    for name, v in vectors.items():
+        _check(name, v, 2, dev)
+        if v.shape != (n, 1):
+            raise ValueError(f"{name} must be ({n}, 1), got "
+                             f"{tuple(v.shape)}")
+    if qs.shape[1] != d or rt.table.shape != (n, tau) \
+            or rt.thresholds.shape != (n, tau) or tau < 2:
+        raise ValueError(f"shape mismatch: rows {tuple(rows.shape)}, qs "
+                         f"{tuple(qs.shape)}, thresholds "
+                         f"{tuple(rt.thresholds.shape)}, table "
+                         f"{tuple(rt.table.shape)}")
+    qnorm1 = query_l1(qs)
+    if dev.type == "cpu":
+        r_lo, r_up, est = ref.ref_bound_ranks_stored(rows, uscale, uslack,
+                                                     qs, qnorm1, rt)
+        return r_lo.T, r_up.T, est.T
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    user_scores.check_shape(d)
+    out = torch.empty((3, n, B), dtype=torch.float32, device=dev)
+    for b0 in range(0, B, user_scores.MAX_B):
+        b1 = min(B, b0 + user_scores.MAX_B)
+        user_scores.bound_ranks_quant_kernel_call(
+            kind, rows, uscale, uslack, qs[b0:b1], qnorm1[b0:b1], rt,
+            out[0, :, b0:b1], out[1, :, b0:b1], out[2, :, b0:b1])
+        LAUNCHES[_QUANT_KERNEL[kind]] += 1
+    return out[0].T, out[1].T, out[2].T
 
 
 def build_table_rows(users: torch.Tensor, samples: torch.Tensor,

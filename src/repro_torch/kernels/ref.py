@@ -1,17 +1,20 @@
-"""Plain PyTorch versions of the three kernels on the main path.
+"""Plain PyTorch versions of the kernels on the main path.
 
 The CPU path of every wrapper in `ops.py` (`ref_bound_ranks`,
-`estimate_table_rows`, `ref_exact_counts`), and what the tests and the
-chip smoke run hold each CUDA kernel against. `ref_table_rows` computes
+`ref_bound_ranks_stored`, `estimate_table_rows`, `ref_exact_counts`),
+and what the tests and the chip smoke run hold each CUDA kernel against.
+`ref_table_rows` computes
 Eq. (1) a second way, by direct comparison, as an independent check of
 K2 and of `estimate_table_rows`. Each computes the same function as its
 kernel; none is a yardstick of speed.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.core.query import lookup_bounds_batch
+from repro_torch.core.query import _dequant_matmul, lookup_bounds_batch
 from repro_torch.core.types import RankTable
 
 
@@ -22,6 +25,23 @@ def ref_bound_ranks(users: torch.Tensor, qs: torch.Tensor,
     lookup. Returns (r_lo, r_up, est), each (n, B) f32, user-major."""
     scores = users @ qs.T
     return lookup_bounds_batch(RankTable(thresholds, table, m), scores)
+
+
+def ref_bound_ranks_stored(rows: torch.Tensor,
+                           uscale: Optional[torch.Tensor],
+                           uslack: torch.Tensor, qs: torch.Tensor,
+                           qnorm1: torch.Tensor, rt: RankTable
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """K4's (bf16 table) and K5's (int8 table) function: scores (n, B) =
+    (rows·qsᵀ)·uscale with f32 accumulate, slack = uslack·‖q‖₁ from the
+    caller's `qnorm1` (B,), then the table's certified lookup
+    (`query._lookup_bounds_bf16` / `_lookup_bounds_int8`). rows may be
+    bf16, int8 or f32; uscale (None: no scale) and uslack are (n, 1)
+    f32. Returns
+    (r_lo, r_up, est), each (n, B) f32, user-major."""
+    scores = _dequant_matmul(rows, uscale, qs)
+    return lookup_bounds_batch(rt, scores, uslack * qnorm1[None, :])
 
 
 def estimate_table_rows(scores: torch.Tensor, weights: torch.Tensor,

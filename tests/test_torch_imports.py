@@ -1,5 +1,6 @@
-"""The port imports neither JAX nor the reference package, and its entry
-points never fall back to the CPU quietly."""
+"""The port imports neither JAX (nor `ml_dtypes`, JAX's bf16 type) nor
+the reference package, and its entry points never fall back to the CPU
+quietly."""
 import ast
 import os
 import subprocess
@@ -19,7 +20,7 @@ import importlib, importlib.abc, pkgutil, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+        if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -39,8 +40,14 @@ eng = ReverseKRanksEngine.build(users, items, RankTableConfig(tau=8,
                                 device="cpu")
 res = eng.query(items[3], 5, 2.0)
 assert res.indices.shape == (5,)
+for spec in ("bf16", "int8"):
+    eng = ReverseKRanksEngine.build(users, items, RankTableConfig(
+        tau=8, omega=2, s=4, storage_dtype=spec), 0, backend="fused",
+        device="cpu")
+    assert eng.rank_table.spec_kind == spec
+    assert eng.query(items[3], 5, 2.0).indices.shape == (5,)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
 assert not bad, bad
 print("OK", len(names))
 """
@@ -68,7 +75,7 @@ def _imports(path):
                          ids=lambda p: str(p.relative_to(SRC)))
 def test_no_file_of_the_port_imports_jax_or_reference(path):
     roots = {name.split(".")[0] for name in _imports(path)}
-    assert not roots & {"jax", "jaxlib", "repro"}, roots
+    assert not roots & {"jax", "jaxlib", "ml_dtypes", "repro"}, roots
 
 
 def test_entry_points_without_device_need_a_card():

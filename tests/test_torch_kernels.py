@@ -192,6 +192,36 @@ def test_wrappers_reject_malformed_inputs(bad):
         ops.bound_ranks_batched(users, qs, thr, tab, m=5)
 
 
+def _quant_state(spec):
+    """A small packed table and stored users for the K4/K5 wrapper."""
+    from repro_torch.core.types import StorageSpec
+    users, _ = _int_problem(3, n=10, m=4, d=4)
+    thr = torch.arange(60, dtype=torch.float32).reshape(10, 6)
+    st = StorageSpec.parse(spec)
+    return (st.pack_table(thr, torch.flip(thr, [1]) + 1.0, m=5),
+            st.pack_users(_t(users)))
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity", "ndim",
+                                 "vector"])
+@pytest.mark.parametrize("spec", ["bf16", "int8"])
+def test_stored_wrapper_rejects_malformed_inputs(spec, bad):
+    rt, su = _quant_state(spec)
+    qs = torch.zeros(2, 4)
+    if bad == "dtype":
+        su = su._replace(rows=su.rows.to(torch.float16))
+    elif bad == "shape":
+        qs = torch.zeros(2, 5)
+    elif bad == "contiguity":
+        rt = rt._replace(table=torch.zeros(6, 10, dtype=rt.table.dtype).T)
+    elif bad == "ndim":
+        qs = torch.zeros(4)
+    else:
+        su = su._replace(row_slack=su.row_slack[:5])
+    with pytest.raises((TypeError, ValueError)):
+        ops.bound_ranks_batched_stored(su, qs, rt)
+
+
 def test_cpu_path_launches_nothing_and_builds_nothing():
     before = dict(ops.LAUNCHES)
     users, items = _int_problem(0, n=20, m=10, d=4)
@@ -200,6 +230,11 @@ def test_cpu_path_launches_nothing_and_builds_nothing():
                          torch.zeros(20, 3))
     ops.bound_ranks(_t(users), _t(items[0]), torch.zeros(20, 3),
                     torch.ones(20, 3), m=10)
+    for spec in ("bf16", "int8"):
+        rt, su = _quant_state(spec)
+        ops.bound_ranks_batched_stored(su, torch.ones(3, 4), rt)
+        ops.bound_ranks_batched_stored(torch.ones(10, 4), torch.ones(1, 4),
+                                       rt)
     assert ops.LAUNCHES == before
     assert _build._LIBS == {}
 

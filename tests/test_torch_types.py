@@ -42,10 +42,9 @@ def test_config_rejects_what_reference_rejects(kwargs):
 
 
 @pytest.mark.parametrize("spec", ["bf16", "bfloat16", "int8"])
-def test_quantized_storage_not_ported_yet(spec):
-    RefConfig(storage_dtype=spec)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        RankTableConfig(storage_dtype=spec)
+def test_quantized_storage_kind_matches_reference(spec):
+    assert RankTableConfig(storage_dtype=spec).storage.kind == \
+        RefConfig(storage_dtype=spec).storage.kind
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -58,8 +57,7 @@ def test_config_accepts_what_reference_accepts(kwargs):
 
 def test_result_and_table_fields_match_reference():
     assert QueryResult._fields == RefQueryResult._fields
-    # the quantization fields wait for the storage tier (queue 1 item 6)
-    assert RankTable._fields == RefRankTable._fields[:3]
+    assert RankTable._fields == RefRankTable._fields
 
 
 @pytest.mark.parametrize("shape,k", [((50,), 1), ((50,), 7), ((3, 40), 5),
