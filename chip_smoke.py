@@ -9,8 +9,10 @@ Phases, each fatal on failure (exit code 1, no result line):
   2. build K1-K5 from `src/repro_torch/kernels/csrc/*.cu` with nvcc;
   3. each kernel against its plain PyTorch version on the card at ragged
      shapes (K4/K5 on integer inputs, where they must agree exactly, with
-     stored and with raw f32 users), and the port's engine on the card
-     against the same engine on the CPU at a small size, at each spec;
+     stored and with raw f32 users; and on randn inputs, where query 0
+     must come out bitwise the same at every query count given the same
+     ‖q‖₁), and the port's engine on the card against the same engine on
+     the CPU at a small size, at each spec;
   4. the main path at the paper's Netflix size (n = 480,189 users,
      m = 17,770 items, d = 200; tau = 500, omega = 10, s = 64), on
      synthetic embeddings from a seed: Algorithm 1 build on the fused
@@ -262,6 +264,44 @@ def check_quant_exact(torch, ops, ref, Q, users, qs, rt, label):
     return got
 
 
+def quant_launches(torch, ops, users, qs, qn, rt):
+    """K4/K5 launched directly, ≤ 16 queries a launch as the wrapper
+    does, with the caller's ‖q‖₁ `qn` → (r_lo, r_up, est), each (n, B)."""
+    rows, uscale, uslack = ops.stored_parts(users, rt.spec_kind)
+    n, B = rows.shape[0], qs.shape[0]
+    out = torch.empty((3, n, B), dtype=torch.float32, device=rows.device)
+    step = ops.user_scores.MAX_B
+    for b0 in range(0, B, step):
+        b1 = min(B, b0 + step)
+        ops.user_scores.bound_ranks_quant_kernel_call(
+            rt.spec_kind, rows, uscale, uslack, qs[b0:b1].contiguous(),
+            qn[b0:b1].contiguous(), rt, out[0, :, b0:b1], out[1, :, b0:b1],
+            out[2, :, b0:b1])
+    torch.cuda.synchronize()
+    return out[0], out[1], out[2]
+
+
+def search_bytes(row_bytes: int, nb: int) -> int:
+    """Least bytes a search of one user's sorted row reads for nb
+    queries: a binary search over the row's 32-byte sectors touches
+    ⌈log2(sectors)⌉ + 1 of them per query (a query's two keys share
+    theirs), and no more than the whole row."""
+    return min(row_bytes, nb * (math.ceil(math.log2(row_bytes / 32)) + 1)
+               * 32)
+
+
+def gather_bytes(torch, idx_hi, tau: int, elem: int, idx_lo=None) -> int:
+    """Bytes of the distinct 32-byte sectors of an (n, tau) table of
+    `elem`-byte values that the lookups at (n, B) bucketize indices read:
+    T[idx_lo - 1] where idx_lo > 0 and T[idx_hi] where idx_hi < tau
+    (idx_lo defaults to idx_hi, as in the f32 lookup)."""
+    idx_lo = idx_hi if idx_lo is None else idx_lo
+    base = torch.arange(idx_hi.shape[0], device=idx_hi.device)[:, None] * tau
+    cells = torch.cat([(base + idx_lo - 1)[idx_lo > 0],
+                       (base + idx_hi)[idx_hi < tau]])
+    return 32 * int(torch.unique(cells * elem // 32).numel())
+
+
 def check_quant(torch, ops, ref, Q, users, qs, rt, label):
     """K4/K5 against the plain version under the bracketing rule (module
     docstring). Returns (max abs err over all cells, cells that differ)."""
@@ -484,6 +524,37 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
                   "users: bounds exact, est within 1e-5, query 0 bitwise "
                   "the same at every B")
 
+    # On integer inputs every summation order gives the same score, so the
+    # check above cannot tell two instantiations of K4/K5 apart. Here the
+    # users and queries are randn, and one ‖q‖₁ vector is shared by every
+    # launch: query 0 must still come out bitwise the same at every B.
+    print("phase: K4/K5 query 0 across B, randn inputs")
+    users = torch.randn((1000, 37), generator=g, device=dev)
+    items = torch.randn((777, 37), generator=g, device=dev)
+    qs = torch.randn((19, 37), generator=g, device=dev)
+    qn = Q.query_l1(qs)
+    for spec in ("bf16", "int8"):
+        for tau in (37, 777):
+            cfg = RankTableConfig(tau=tau, omega=4, s=16, storage_dtype=spec)
+            rt = rt_mod.build_rank_table(users, items, cfg, g)
+            n_diffs = []
+            for u, what in ((cfg.storage.pack_users(users), "stored"),
+                            (users, "raw f32")):
+                first = None
+                for nb in (1, 2, 3, 6, 16, 19):
+                    got = [x[:, 0] for x in quant_launches(
+                        torch, ops, u, qs[:nb], qn[:nb], rt)]
+                    first = got if first is None else first
+                    check(all(torch.equal(a, b) for a, b in zip(got, first)),
+                          f"{spec} tau={tau} {what}, randn: query 0 at "
+                          f"B={nb} differs from B=1")
+                n_diffs.append(check_quant(torch, ops, ref, Q, u, qs, rt,
+                                           f"{spec} tau={tau} {what} "
+                                           "randn")[1])
+            print(f"  {spec}: tau={tau}, stored and raw f32 users: query 0 "
+                  "bitwise the same at B in 1,2,3,6,16,19; B=19 within the "
+                  f"bracketing rule ({n_diffs} cells differ from plain)")
+
     print("phase: engine on the card vs the same engine on the CPU")
     users, items = synthetic_embeddings(3, 2048, 1024, 32, device=dev)
     cfg = RankTableConfig(tau=64)
@@ -694,12 +765,21 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
         check_containment(torch, res_s, res, f"{spec} fused (K{kid}) vs "
                           "f32 K1")
         check_containment(torch, res_sd, res, f"{spec} dense vs f32 K1")
-        # K4/K5 compute each query's score the same way at any B, so the
-        # fused query(q) is row 0 of query_batch wherever ‖q‖₁ comes out
-        # of the reduction the same for one query as for 16 (the dense
-        # path's product is not bitwise across B)
-        same_l1 = bool(query_mod.query_l1(qs)[0]
-                       == query_mod.query_l1(qs[:1])[0])
+        # K4/K5 compute each query's score the same way at any B: with one
+        # ‖q‖₁ shared by both launches, query 0 alone equals column 0 of
+        # the 16. The fused query(q) is then row 0 of query_batch wherever
+        # ‖q‖₁ comes out of the reduction the same for one query as for
+        # 16 (the dense path's product is not bitwise across B)
+        qn = query_mod.query_l1(qs)
+        one = quant_launches(torch, ops, eng_s.stored_users, qs[:1], qn[:1],
+                             eng_s.rank_table)
+        all16 = quant_launches(torch, ops, eng_s.stored_users, qs, qn,
+                               eng_s.rank_table)
+        check(all(torch.equal(a[:, 0], b[:, 0]) for a, b in zip(one, all16)),
+              f"{spec}: K{kid} query 0 at B=1 differs from B=16 with the "
+              "same ‖q‖₁")
+        del one, all16
+        same_l1 = bool(qn[0] == query_mod.query_l1(qs[:1])[0])
         r1 = t["res1"]
         if same_l1:
             check(torch.equal(r1.indices, res_s.indices[0])
@@ -734,8 +814,9 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
               f"{mean(ratios['dense']):.4f} (graded by phase 4's K3 ranks); "
               f"guaranteed in {int(res_s.guaranteed.sum())} of {B}; item "
               f"{QUERY_ITEM}: {r1.indices.tolist()}; fused query(q) = row "
-              f"0 of query_batch checked: {same_l1}; dense query(q) selects "
-              f"row 0's users: {dense_row0}")
+              f"0 of query_batch checked: {same_l1} (K{kid} query 0 at B=1 "
+              "= B=16 with one ‖q‖₁: checked); "
+              f"dense query(q) selects row 0's users: {dense_row0}")
         qb_st = time_ms(torch, lambda: eng_s.query_batch(qs, K, C), reps=10)
         q1_st = time_ms(torch, lambda: eng_s.query(items[QUERY_ITEM], K, C),
                         reps=10)
@@ -779,14 +860,15 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
         pms = time_ms(torch, lambda: ref.ref_bound_ranks(
             users, q, thr, tab, M), reps=5)
         # least bytes: U and Q once; per user, a search of the sorted
-        # thresholds row (⌈log2 τ⌉ 32-byte sectors a query, at most the
-        # row) and two table gathers a query (at most the row); outputs
-        probes = math.ceil(math.log2(TAU))
-        row_bytes = 4 * TAU
-        k1_bytes = (4 * (N * D + nb * D) + N * min(row_bytes, nb * probes * 32)
-                    + N * min(row_bytes, 2 * nb * 32) + 12 * N * nb)
+        # thresholds row and the table sectors this run's lookups touch;
+        # outputs
+        idx = query_mod._bucketize(thr, users @ q.T)
+        k1_bytes = (4 * (N * D + nb * D) + N * search_bytes(4 * TAU, nb)
+                    + gather_bytes(torch, idx, TAU, 4) + 12 * N * nb)
+        del idx
         row(f"k1_bound_ranks[B={nb}]", replaces, counts["k1_bound_ranks"],
-            err, ms, pms, k1_bytes, 2 * N * D * nb + N * nb * probes,
+            err, ms, pms, k1_bytes,
+            2 * N * D * nb + N * nb * math.ceil(math.log2(TAU)),
             src + "user_scores.cu")
 
     table_k2, err = check_k2(torch, ops, ref, users, samples, w, thr,
@@ -839,16 +921,23 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
             pms = time_ms(torch, lambda: ref.ref_bound_ranks_stored(
                 rows, uscale, uslack, q, qn, rt_s), reps=5)
             # least bytes: the stored rows, the per-user vectors, Q and
-            # ‖q‖₁ once; per user the sectors a search and the table
-            # gathers touch (capped at the row), and the outputs
+            # ‖q‖₁ once; per user K4's search of the thresholds row (one
+            # per query, shared by its two keys), the table sectors this
+            # run's lookups touch, and the outputs
+            indices = {"bf16": query_mod.bf16_indices,
+                       "int8": query_mod.int8_indices}[spec]
+            idx_lo, idx_hi = indices(
+                rt_s, query_mod._dequant_matmul(rows, uscale, q),
+                uslack * qn[None, :])
             if spec == "bf16":
-                need = (2 * N * D + 4 * N
-                        + N * min(2 * TAU, 2 * nb * probes * 32)
-                        + N * min(2 * TAU, 2 * nb * 32))
+                need = (2 * N * D + 4 * N + N * search_bytes(2 * TAU, nb)
+                        + gather_bytes(torch, idx_hi, TAU, 2, idx_lo))
                 flops = 2 * N * D * nb + 2 * N * nb * probes
             else:
-                need = N * D + 28 * N + N * min(TAU, 2 * nb * 32)
+                need = (N * D + 28 * N
+                        + gather_bytes(torch, idx_hi, TAU, 1, idx_lo))
                 flops = 2 * N * D * nb + 20 * N * nb
+            del idx_lo, idx_hi
             need += 4 * (nb * D + nb) + 12 * N * nb
             row(f"{name}[B={nb}]", f"src/repro/kernels/user_scores.py:{line}",
                 counts_q[name], err, ms, pms, need, flops,
