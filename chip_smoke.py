@@ -11,8 +11,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      shapes (K4/K5 on integer inputs, where they must agree exactly, with
      stored and with raw f32 users; and on randn inputs, where query 0
      must come out bitwise the same at every query count given the same
-     ‖q‖₁), and the port's engine on the card against the same engine on
-     the CPU at a small size, at each spec;
+     ‖q‖₁); K1-K5 again at d = 1,031, past every former shared-memory
+     cap (Qᵀ streamed, K3's user tile and K2's depth cut); K6/K7 against
+     K1/K4/K5 on the same rows (bitwise, B in 1, 3, 16, 19, with a
+     partial tail tile, duplicate ids and a single tile) and against
+     their plain versions; and the port's engine on the card against the
+     same engine on the CPU at a small size, at each spec;
   4. the main path at the paper's Netflix size (n = 480,189 users,
      m = 17,770 items, d = 200; tau = 500, omega = 10, s = 64), on
      synthetic embeddings from a seed: Algorithm 1 build on the fused
@@ -25,10 +29,20 @@ Phases, each fatal on failure (exit code 1, no result line):
      `pack_users` of the f32 arrays; query_batch and query on the fused
      backend (K4, K5) and on dense; certified containment of every
      (query, user) bound in the f32 engine's K1 bounds; the §5 metrics
-     against the exact ranks of phase 4; memory_bytes. Its own launch
-     counts, zeroed before and read after; K4 and K5 must have run;
+     against the exact ranks of phase 4; memory_bytes; the fused
+     query(q) equal to row 0 of query_batch. Its own launch counts,
+     zeroed before and read after; K4 and K5 must have run;
+  4c. block-pruned queries: (i) the same data built with
+     cluster_reorder=True on pruned:fused at the default cap, whose
+     selection must be bitwise the full-scan fused engine's on the same
+     rows; (ii) the pruned path forced (max_union_frac=1.0) at f32, bf16
+     and int8, where K6 and K7 must launch (its own launch counts), the
+     selection must be the full scan's and query(q) row 0 of
+     query_batch; (iii) the mid_mixture regime reordered, with a
+     hot-cluster batch: skip rate and time beside the full scan;
   5. each kernel against its plain version on the main path's inputs,
-     and their times beside the card's bound.
+     and their times beside the card's bound (K6/K7 on phase 4c (ii)'s
+     kept tiles, bounded over the kept rows).
 
 The explained-mismatch rule: a kernel and its plain version compute the
 same f32 dot products in different orders, so a score may differ by the
@@ -64,6 +78,7 @@ sys.path.insert(0, str(ROOT / "src"))
 N, M, D = 480_189, 17_770, 200     # Netflix (src/repro/configs/paper_engine.py)
 TAU, OMEGA, S_PER = 500, 10, 64    # DEFAULT_TABLE
 K, C, B = 10, 2.0, 16
+D_WIDE = 1031                      # past every former shared-memory cap
 QUERY_ITEM = 42                    # the item examples/quickstart.py queries
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
@@ -109,9 +124,14 @@ def score_eps(torch, a, b):
     return 2.0 * d * U24 * (a.abs() @ b.abs().T)
 
 
-def check_k1(torch, ops, ref, users, qs, thr, tab, m, label):
-    """K1 against its plain version under the explained-mismatch rule."""
-    got = [x.T for x in ops.bound_ranks_batched(users, qs, thr, tab, m=m)]
+def check_k1(torch, ops, ref, users, qs, thr, tab, m, label, got=None,
+             name="K1"):
+    """K1 against its plain version under the explained-mismatch rule;
+    `got` (user-major (n, B) outputs) holds another launch's result for
+    these rows, such as K6's kept rows (`name` "K6")."""
+    if got is None:
+        got = [x.T for x in ops.bound_ranks_batched(users, qs, thr, tab,
+                                                    m=m)]
     want = ref.ref_bound_ranks(users, qs, thr, tab, m)         # (n, B)
     torch.cuda.synchronize()
     tau = thr.shape[1]
@@ -125,7 +145,7 @@ def check_k1(torch, ops, ref, users, qs, thr, tab, m, label):
                          (scores - torch.gather(thr, 1, lo_col)).abs())
     unexplained = bounds_differ & ~(near <= eps)
     check(not bool(unexplained.any()),
-          f"K1 {label}: {int(unexplained.sum())} bound mismatches not "
+          f"{name} {label}: {int(unexplained.sum())} bound mismatches not "
           "explained by a score within eps of a threshold")
     # est: 1e-5 relative plus |d est / d score|·eps on cells whose bounds agree
     r_lo, r_up = want[0], want[1]
@@ -142,14 +162,15 @@ def check_k1(torch, ops, ref, users, qs, thr, tab, m, label):
     bad_est = ~bounds_differ & (est_err > allowed)
     if bool(bad_est.any()):
         raise SmokeFailure(
-            f"K1 {label}: {int(bad_est.sum())} est cells beyond tolerance "
+            f"{name} {label}: {int(bad_est.sum())} est cells beyond tolerance "
             f"(max err {float(est_err[bad_est].max()):.3g})")
     for x in got:
-        check(bool(torch.isfinite(x).all()), f"K1 {label}: non-finite output")
+        check(bool(torch.isfinite(x).all()),
+              f"{name} {label}: non-finite output")
     max_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     same = ~bounds_differ
     est_same = float(est_err[same].max()) if bool(same.any()) else 0.0
-    print(f"  K1 {label}: n={users.shape[0]} d={users.shape[1]} "
+    print(f"  {name} {label}: n={users.shape[0]} d={users.shape[1]} "
           f"tau={tau} B={qs.shape[0]}: {int(bounds_differ.sum())} of "
           f"{bounds_differ.numel()} cells with a bucketize flip, all "
           f"explained; est max err where bounds agree {est_same:.3g}; "
@@ -264,19 +285,45 @@ def check_quant_exact(torch, ops, ref, Q, users, qs, rt, label):
     return got
 
 
-def quant_launches(torch, ops, users, qs, qn, rt):
-    """K4/K5 launched directly, ≤ 16 queries a launch as the wrapper
-    does, with the caller's ‖q‖₁ `qn` → (r_lo, r_up, est), each (n, B)."""
-    rows, uscale, uslack = ops.stored_parts(users, rt.spec_kind)
-    n, B = rows.shape[0], qs.shape[0]
-    out = torch.empty((3, n, B), dtype=torch.float32, device=rows.device)
+def quant_launch(ops, parts, qs, qn, rt, out):
+    """K4/K5 launched directly into `out` (3, n, B), ≤ 16 queries a
+    launch as the wrapper does, with the caller's stored_parts `parts`
+    and ‖q‖₁ `qn`; no checks, no allocation, no sync."""
     step = ops.user_scores.MAX_B
-    for b0 in range(0, B, step):
-        b1 = min(B, b0 + step)
+    for b0 in range(0, qs.shape[0], step):
+        b1 = min(qs.shape[0], b0 + step)
         ops.user_scores.bound_ranks_quant_kernel_call(
-            rt.spec_kind, rows, uscale, uslack, qs[b0:b1].contiguous(),
-            qn[b0:b1].contiguous(), rt, out[0, :, b0:b1], out[1, :, b0:b1],
-            out[2, :, b0:b1])
+            rt.spec_kind, *parts, qs[b0:b1], qn[b0:b1], rt,
+            out[0, :, b0:b1], out[1, :, b0:b1], out[2, :, b0:b1])
+
+
+def masked_launch(ops, users, qs, qn, rt, ids, block_n, out):
+    """K6 (f32) or K7 launched directly into `out` (3, nk·block_n, B) over
+    the already checked tile list `ids`, with the caller's ‖q‖₁ `qn`;
+    the wrapper's range check of the ids syncs with the card, which
+    would serialize a timing loop."""
+    step = ops.user_scores.MAX_B
+    for b0 in range(0, qs.shape[0], step):
+        b1 = min(qs.shape[0], b0 + step)
+        o = (out[0, :, b0:b1], out[1, :, b0:b1], out[2, :, b0:b1])
+        if rt.spec_kind == "f32":
+            ops.user_scores.bound_ranks_batched_kernel_call(
+                users, qs[b0:b1], rt.thresholds, rt.table, *o, m=rt.m,
+                block_ids=ids, block_n=block_n)
+        else:
+            ops.user_scores.bound_ranks_quant_kernel_call(
+                rt.spec_kind, *ops.stored_parts(users, rt.spec_kind),
+                qs[b0:b1], qn[b0:b1], rt, *o, block_ids=ids,
+                block_n=block_n)
+
+
+def quant_launches(torch, ops, users, qs, qn, rt):
+    """K4/K5 launched directly with the caller's ‖q‖₁ `qn` → (r_lo, r_up,
+    est), each (n, B)."""
+    parts = ops.stored_parts(users, rt.spec_kind)
+    out = torch.empty((3, parts[0].shape[0], qs.shape[0]),
+                      dtype=torch.float32, device=qs.device)
+    quant_launch(ops, parts, qs.contiguous(), qn.contiguous(), rt, out)
     torch.cuda.synchronize()
     return out[0], out[1], out[2]
 
@@ -302,11 +349,13 @@ def gather_bytes(torch, idx_hi, tau: int, elem: int, idx_lo=None) -> int:
     return 32 * int(torch.unique(cells * elem // 32).numel())
 
 
-def check_quant(torch, ops, ref, Q, users, qs, rt, label):
+def check_quant(torch, ops, ref, Q, users, qs, rt, label, got=None):
     """K4/K5 against the plain version under the bracketing rule (module
-    docstring). Returns (max abs err over all cells, cells that differ)."""
+    docstring); `got` as in check_k1 (K7's kept rows). Returns (max abs
+    err over all cells, cells that differ)."""
     rows, uscale, uslack = ops.stored_parts(users, rt.spec_kind)
-    got = [x.T for x in ops.bound_ranks_batched_stored(users, qs, rt)]
+    if got is None:
+        got = [x.T for x in ops.bound_ranks_batched_stored(users, qs, rt)]
     qn = Q.query_l1(qs)
     want = ref.ref_bound_ranks_stored(rows, uscale, uslack, qs, qn, rt)
     torch.cuda.synchronize()
@@ -387,6 +436,44 @@ def check_containment(torch, res, want, label):
     check(n_bad == 0 and stats_ok, f"containment {label} fails")
 
 
+def same_selection(torch, got, want, label):
+    """A pruned result against the full scan's on the same engine: the
+    indices, their est, R↓_k, R↑_k and the guarantee, bitwise."""
+    for f in ("indices", "est_rank", "R_lo_k", "R_up_k", "guaranteed"):
+        check(torch.equal(getattr(got, f), getattr(want, f)),
+              f"{label}: {f} differs from the full scan's")
+
+
+def step1_need(torch, Q, ops, users, q, rt):
+    """Least input bytes and operations of K1's (f32), K4's (bf16) or
+    K5's (int8) function on these rows (raw f32 users at f32, stored
+    users otherwise): the rows and per-row vectors once, Q and ‖q‖₁ once,
+    per row a sector-level search of the thresholds row per query (none
+    at int8), and the distinct table sectors that this run's lookups
+    read. Outputs are the caller's to add."""
+    kind = rt.spec_kind
+    n, d = (users.rows if kind != "f32" else users).shape
+    nb, tau = q.shape[0], rt.tau
+    if kind == "f32":
+        idx = Q._bucketize(rt.thresholds, users @ q.T)
+        return (4 * (n * d + nb * d) + n * search_bytes(4 * tau, nb)
+                + gather_bytes(torch, idx, tau, 4),
+                2 * n * d * nb + n * nb * math.ceil(math.log2(tau)))
+    rows, uscale, uslack = ops.stored_parts(users, kind)
+    qn = Q.query_l1(q)
+    indices = {"bf16": Q.bf16_indices, "int8": Q.int8_indices}[kind]
+    idx_lo, idx_hi = indices(rt, Q._dequant_matmul(rows, uscale, q),
+                             uslack * qn[None, :])
+    if kind == "bf16":
+        need = (2 * n * d + 4 * n + n * search_bytes(2 * tau, nb)
+                + gather_bytes(torch, idx_hi, tau, 2, idx_lo))
+        flops = 2 * n * d * nb + 2 * n * nb * math.ceil(math.log2(tau))
+    else:
+        need = n * d + 28 * n + gather_bytes(torch, idx_hi, tau, 1, idx_lo)
+        flops = 2 * n * d * nb + 20 * n * nb
+    return need + 4 * (nb * d + nb), flops
+
+
 # ------------------------------------------------------------ main path
 def main() -> int:
     t_start = time.perf_counter()
@@ -401,11 +488,14 @@ def main() -> int:
     try:
         from repro_torch.core import exact as exact_mod
         from repro_torch.core import metrics
+        from repro_torch.core import pruning
+        from repro_torch.core.backends import PrunedBackend
         from repro_torch.core import query as query_mod
         from repro_torch.core import rank_table as rt_mod
         from repro_torch.core.engine import ReverseKRanksEngine
         from repro_torch.core.types import RankTableConfig
-        from repro_torch.data.pipeline import synthetic_embeddings
+        from repro_torch.data.pipeline import mid_mixture, \
+            synthetic_embeddings
         from repro_torch.kernels import _build, ops, ref
     except ImportError as e:
         print(f"FAIL: the port is not importable here ({e}); run from a "
@@ -414,7 +504,8 @@ def main() -> int:
     try:
         kernels = run(torch, exact_mod, metrics, query_mod, rt_mod,
                       ReverseKRanksEngine, RankTableConfig,
-                      synthetic_embeddings, _build, ops, ref)
+                      synthetic_embeddings, _build, ops, ref, pruning,
+                      PrunedBackend, mid_mixture)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -433,7 +524,9 @@ def main() -> int:
 
 
 def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
-        RankTableConfig, synthetic_embeddings, _build, ops, ref):
+        RankTableConfig, synthetic_embeddings, _build, ops, ref, pruning,
+        PrunedBackend, mid_mixture):
+    import numpy as np
     dev = torch.device("cuda")
     # 1. device line
     print(f"device: {nvidia_smi_line()}")
@@ -554,6 +647,113 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
             print(f"  {spec}: tau={tau}, stored and raw f32 users: query 0 "
                   "bitwise the same at B in 1,2,3,6,16,19; B=19 within the "
                   f"bracketing rule ({n_diffs} cells differ from plain)")
+
+    # 3b. Qᵀ streamed through shared memory, the user tile of K3 and the
+    # depth of K2 cut, at a d past every former shared-memory cap; its own
+    # generator, so that the earlier phases' inputs (and lines) are as
+    # they were
+    print(f"phase: kernels vs plain at d = {D_WIDE}")
+    g2 = torch.Generator(device=dev)
+    g2.manual_seed(11)
+    n, m, tau = 500, 400, 128
+    users = torch.randn((n, D_WIDE), generator=g2, device=dev)
+    items = torch.randn((m, D_WIDE), generator=g2, device=dev)
+    cfg = RankTableConfig(tau=tau, omega=4, s=16)
+    items_sorted, _ = rt_mod.sort_items_by_norm(items)
+    pos, w = rt_mod.stratified_sample_indices(m, cfg, g2)
+    rt = rt_mod.build_rank_table_sorted(users, items_sorted, cfg,
+                                        positions=pos, weights=w)
+    check_k2(torch, ops, ref, users, items_sorted[pos].contiguous(), w,
+             rt.thresholds, f"d={D_WIDE}")
+    for nb in (1, 16, 19):
+        check_k1(torch, ops, ref, users, items[:nb].contiguous(),
+                 rt.thresholds, rt.table, m, f"d={D_WIDE}")
+    for q, what in ((items[11], "q in P"),
+                    (torch.randn((D_WIDE,), generator=g2, device=dev),
+                     "random q")):
+        _, n_diff, err = check_k3(torch, ops, ref, users, items,
+                                  q.contiguous(), f"d={D_WIDE}")
+        print(f"  K3 d={D_WIDE} ({what}): n={n} m={m}: {n_diff} ranks "
+              f"differ, all explained; max abs err {err}")
+    iu = torch.randint(-4, 5, (n, D_WIDE), generator=g2, device=dev).float()
+    ii = torch.randint(-4, 5, (m, D_WIDE), generator=g2, device=dev).float()
+    for spec in ("bf16", "int8"):
+        cfg = RankTableConfig(tau=37, omega=4, s=16, storage_dtype=spec)
+        rt_i = rt_mod.build_rank_table(iu, ii, cfg, g2)
+        rt_r = cfg.storage.pack_table(rt.thresholds, rt.table, m=m)
+        for u, what in ((cfg.storage.pack_users(iu), "stored"),
+                        (iu, "raw f32")):
+            for nb in (1, 16, 19):
+                check_quant_exact(torch, ops, ref, Q, u,
+                                  ii[:nb].contiguous(), rt_i,
+                                  f"{spec} d={D_WIDE} {what} B={nb}")
+        su = cfg.storage.pack_users(users)
+        qn = Q.query_l1(items[:19])
+        first = [x[:, 0] for x in quant_launches(torch, ops, su, items[:1],
+                                                 qn[:1], rt_r)]
+        got = [x[:, 0] for x in quant_launches(torch, ops, su, items[:19],
+                                               qn, rt_r)]
+        check(all(torch.equal(a, b) for a, b in zip(got, first)),
+              f"{spec} d={D_WIDE}: query 0 at B=19 differs from B=1")
+        check_quant(torch, ops, ref, Q, su, items[:19].contiguous(), rt_r,
+                    f"{spec} d={D_WIDE} stored randn")
+        print(f"  {spec} d={D_WIDE}: integer inputs exact (stored and raw "
+              "f32, B in 1,16,19); randn query 0 bitwise at B=1 and 19")
+
+    # 3c. K6 / K7: the kernels behind a row map, against K1/K4/K5 on the
+    # same rows (bitwise) and against their plain versions
+    print("phase: K6/K7 vs K1/K4/K5 and plain, ragged tiles")
+    g3 = torch.Generator(device=dev)
+    g3.manual_seed(13)
+    n, m, bn = 1000, 777, 256
+    id_lists = ((0, 2, 3), (3, 1, 1, 3), (1,))    # tail, duplicates, nk = 1
+    for d, tau in ((37, 777), (D_WIDE, 128)):
+        users = torch.randn((n, d), generator=g3, device=dev)
+        items = torch.randn((m, d), generator=g3, device=dev)
+        for spec in ("f32", "bf16", "int8"):
+            cfg = RankTableConfig(tau=tau, omega=4, s=16, storage_dtype=spec)
+            rt = rt_mod.build_rank_table(users, items, cfg, g3)
+            su = cfg.storage.pack_users(users)
+            row_sets = ((users, "raw f32"),) if su is None else (
+                (su, "stored"), (users, "raw f32"))
+            for u, what in row_sets:
+                for nb in (1, 3, 16, 19):
+                    qs = items[:nb].contiguous()
+                    full = ops.bound_ranks_batched_stored(u, qs, rt)
+                    for li, ids in enumerate(id_lists):
+                        ids_t = torch.tensor(ids, dtype=torch.int32,
+                                             device=dev)
+                        got = ops.bound_ranks_batched_pruned_stored(
+                            u, qs, rt, ids_t, block_n=bn)
+                        ridx = pruning.row_indices(ids_t, bn).long()
+                        live = ridx < n
+                        for a, b in zip(got, full):
+                            check(torch.equal(a[:, live],
+                                              b[:, ridx[live]]),
+                                  f"{spec} d={d} {what} B={nb} ids={ids}: "
+                                  "masked kernel differs from the full "
+                                  "scan on its kept rows")
+                            check(bool((a[:, ~live] == float(m + 2)).all()),
+                                  f"{spec} d={d}: rows past n are not m+2")
+                        if li or nb not in (1, 19):
+                            continue
+                        kr = ridx[live]
+                        kept = [x[:, live].T for x in got]
+                        if spec == "f32":
+                            check_k1(torch, ops, ref, users[kr], qs,
+                                     rt.thresholds[kr], rt.table[kr], m,
+                                     f"vs plain d={d} ids={ids}", got=kept,
+                                     name="K6")
+                        else:
+                            check_quant(torch, ops, ref, Q,
+                                        users[kr] if u is users
+                                        else su.take_rows(kr),
+                                        qs, rt.take_rows(kr),
+                                        f"K7 {spec} {what} vs plain d={d} "
+                                        f"ids={ids}", got=kept)
+            print(f"  {'K6' if spec == 'f32' else 'K7 ' + spec}: d={d} "
+                  f"tau={tau}, B in 1,3,16,19, ids {id_lists}: kept rows "
+                  "bitwise the full scan's, rows past n at m+2")
 
     print("phase: engine on the card vs the same engine on the CPU")
     users, items = synthetic_embeddings(3, 2048, 1024, 32, device=dev)
@@ -767,9 +967,10 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
         check_containment(torch, res_sd, res, f"{spec} dense vs f32 K1")
         # K4/K5 compute each query's score the same way at any B: with one
         # ‖q‖₁ shared by both launches, query 0 alone equals column 0 of
-        # the 16. The fused query(q) is then row 0 of query_batch wherever
-        # ‖q‖₁ comes out of the reduction the same for one query as for
-        # 16 (the dense path's product is not bitwise across B)
+        # the 16. ‖q‖₁ is summed in an order fixed by d alone, so it is
+        # the same for one query as for 16, and the fused query(q) must
+        # be row 0 of query_batch (the dense path's product is not
+        # bitwise across B)
         qn = query_mod.query_l1(qs)
         one = quant_launches(torch, ops, eng_s.stored_users, qs[:1], qn[:1],
                              eng_s.rank_table)
@@ -779,14 +980,14 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
               f"{spec}: K{kid} query 0 at B=1 differs from B=16 with the "
               "same ‖q‖₁")
         del one, all16
-        same_l1 = bool(qn[0] == query_mod.query_l1(qs[:1])[0])
+        check(bool(qn[0] == query_mod.query_l1(qs[:1])[0]),
+              f"{spec}: ‖q‖₁ of query 0 differs between B=1 and B=16")
         r1 = t["res1"]
-        if same_l1:
-            check(torch.equal(r1.indices, res_s.indices[0])
-                  and torch.equal(r1.r_lo, res_s.r_lo[0])
-                  and torch.equal(r1.r_up, res_s.r_up[0])
-                  and torch.equal(r1.est_rank, res_s.est_rank[0]),
-                  f"{spec}: query(q) differs from row 0 of query_batch")
+        check(torch.equal(r1.indices, res_s.indices[0])
+              and torch.equal(r1.r_lo, res_s.r_lo[0])
+              and torch.equal(r1.r_up, res_s.r_up[0])
+              and torch.equal(r1.est_rank, res_s.est_rank[0]),
+              f"{spec}: query(q) differs from row 0 of query_batch")
         dense_row0 = bool(torch.equal(t["res1_d"].indices,
                                       res_sd.indices[0]))
         su = eng_s.stored_users
@@ -814,8 +1015,8 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
               f"{mean(ratios['dense']):.4f} (graded by phase 4's K3 ranks); "
               f"guaranteed in {int(res_s.guaranteed.sum())} of {B}; item "
               f"{QUERY_ITEM}: {r1.indices.tolist()}; fused query(q) = row "
-              f"0 of query_batch checked: {same_l1} (K{kid} query 0 at B=1 "
-              "= B=16 with one ‖q‖₁: checked); "
+              f"0 of query_batch and ‖q‖₁ the same at B=1 and B=16: checked "
+              f"(K{kid} query 0 at B=1 = B=16 with one ‖q‖₁: checked); "
               f"dense query(q) selects row 0's users: {dense_row0}")
         qb_st = time_ms(torch, lambda: eng_s.query_batch(qs, K, C), reps=10)
         q1_st = time_ms(torch, lambda: eng_s.query(items[QUERY_ITEM], K, C),
@@ -825,6 +1026,146 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
         print(f"  {spec} steady state: fused query_batch(B={B}) "
               f"{qb_st:.3f} ms, query {q1_st:.3f} ms; dense query_batch "
               f"{qb_dn:.3f} ms")
+
+    # 4c. block-pruned queries on the main path's data, reordered
+    print(f"phase: block-pruned queries, n={N} m={M} d={D} tau={TAU}, "
+          f"B={B}, cluster_reorder=True")
+    t0 = time.perf_counter()
+    eng_r = ReverseKRanksEngine.build(users, items, cfg, None,
+                                      backend=PrunedBackend("fused"),
+                                      device=dev, positions=pos, weights=w,
+                                      cluster_reorder=True)
+    torch.cuda.synchronize()
+    build_r = time.perf_counter() - t0
+    check(eng_r.user_remap is not None, "the k-means layout is the identity")
+    check(torch.equal(eng_r.users, users[torch.argsort(eng_r.user_remap)]),
+          "the reordered users are not the users in remap order")
+    fused_r = ReverseKRanksEngine(eng_r.users, eng_r.rank_table, cfg,
+                                  backend="fused")
+    res_p = eng_r.query_batch(qs, K, C)
+    st = eng_r._backend.stats
+    same_selection(torch, res_p, fused_r.query_batch(qs, K, C),
+                   "(i) pruned:fused, default cap")
+    print(f"  (i) build with cluster_reorder {build_r:.3f} s (host clock, "
+          f"k-means + K2); pruned:fused at max_union_frac=0.5: kept union "
+          f"{st.kept_union} of {st.n_blocks} blocks, skip rate "
+          f"{st.skip_rate:.4f}, kept per query {st.kept_per_query:.4f}, "
+          f"fallback {st.fallback or 'none'}; indices, est, R_k bitwise "
+          "the full-scan fused engine's")
+    qb_pr = time_ms(torch, lambda: eng_r.query_batch(qs, K, C), reps=10)
+    qb_fr = time_ms(torch, lambda: fused_r.query_batch(qs, K, C), reps=10)
+    print(f"  (i) steady state query_batch(B={B}): pruned:fused {qb_pr:.3f} "
+          f"ms, fused {qb_fr:.3f} ms")
+
+    # (ii) the pruned path forced (max_union_frac = 1.0) at every spec:
+    # the launch counts of K6/K7 come from this run
+    ops.reset_launch_counts()
+    forced = {}
+    for spec in ("f32", "bf16", "int8"):
+        cfg_s = cfg if spec == "f32" else RankTableConfig(
+            tau=TAU, omega=OMEGA, s=S_PER, storage_dtype=spec)
+        base = eng_r if spec == "f32" else ReverseKRanksEngine.build(
+            users, items, cfg_s, None, backend="fused", device=dev,
+            positions=pos, weights=w, cluster_reorder=True)
+        check(torch.equal(base.user_remap, eng_r.user_remap),
+              f"{spec}: the k-means layout differs from the f32 build's")
+        eng_p = ReverseKRanksEngine(
+            base.users, base.rank_table, cfg_s,
+            backend=PrunedBackend("fused", max_union_frac=1.0))
+        res = eng_p.query_batch(qs, K, C)
+        stats = eng_p._backend.stats
+        res1 = eng_p.query(items[QUERY_ITEM], K, C)
+        eng_f = ReverseKRanksEngine(base.users, base.rank_table, cfg_s,
+                                    backend="fused")
+        forced[spec] = dict(eng_p=eng_p, eng_f=eng_f, res=res, res1=res1,
+                            stats=stats, res_f=eng_f.query_batch(qs, K, C))
+    torch.cuda.synchronize()
+    counts_p = dict(ops.LAUNCHES)
+    print(f"  (ii) launches on the forced pruned path: {counts_p}")
+    for name in ("k6_bound_ranks_masked", "k7_bound_ranks_bf16_masked",
+                 "k7_bound_ranks_int8_masked"):
+        check(counts_p[name] >= 1,
+              f"kernel {name} was not launched on the pruned path")
+    for spec, f in forced.items():
+        st = f["stats"]
+        check(st.fallback == "", f"{spec}: the forced pruned path fell back")
+        same_selection(torch, f["res"], f["res_f"],
+                       f"(ii) {spec} pruned:fused")
+        r1 = f["res1"]
+        for fld in ("indices", "est_rank", "R_lo_k", "R_up_k", "guaranteed"):
+            check(torch.equal(getattr(r1, fld), getattr(f["res"], fld)[0]),
+                  f"(ii) {spec}: query(q) {fld} differs from row 0 of "
+                  "query_batch")
+        qb_p = time_ms(torch, lambda: f["eng_p"].query_batch(qs, K, C),
+                       reps=10)
+        qb_f = time_ms(torch, lambda: f["eng_f"].query_batch(qs, K, C),
+                       reps=10)
+        print(f"  (ii) {spec} pruned:fused at max_union_frac=1.0: kept "
+              f"union {st.kept_union} of {st.n_blocks}, skip rate "
+              f"{st.skip_rate:.4f}; indices, est, R_k bitwise the full "
+              f"scan's; query(q) = row 0 of query_batch; steady "
+              f"query_batch {qb_p:.3f} ms (fused {qb_f:.3f} ms)")
+
+    # (iii) the mid-entropy regime, reordered, with a hot-cluster batch
+    mu_, mi_, micl = mid_mixture(5, N, M, D, device=dev)
+    gm = torch.Generator(device=dev)
+    gm.manual_seed(6)
+    t0 = time.perf_counter()
+    eng_m = ReverseKRanksEngine.build(mu_, mi_, cfg, gm,
+                                      backend=PrunedBackend("fused"),
+                                      device=dev, cluster_reorder=True)
+    torch.cuda.synchronize()
+    build_m = time.perf_counter() - t0
+    hot = mi_[int(torch.nonzero(micl == 0)[0])] * 1.2
+    qs_hot = (hot[None, :] * (1.0 + 1e-3 * torch.randn(
+        (B, D), generator=gm, device=dev))).contiguous()
+    fused_m = ReverseKRanksEngine(eng_m.users, eng_m.rank_table, cfg,
+                                  backend="fused")
+    res_m = eng_m.query_batch(qs_hot, K, C)
+    st = eng_m._backend.stats
+    same_selection(torch, res_m, fused_m.query_batch(qs_hot, K, C),
+                   "(iii) mid_mixture pruned:fused")
+    qb_pm = time_ms(torch, lambda: eng_m.query_batch(qs_hot, K, C), reps=10)
+    qb_fm = time_ms(torch, lambda: fused_m.query_batch(qs_hot, K, C),
+                    reps=10)
+    print(f"  (iii) mid_mixture (10% noise floor), build with "
+          f"cluster_reorder {build_m:.3f} s; hot-cluster batch: kept union "
+          f"{st.kept_union} of {st.n_blocks}, skip rate {st.skip_rate:.4f}, "
+          f"kept per query {st.kept_per_query:.4f}, fallback "
+          f"{st.fallback or 'none'}; selection bitwise the full scan's; "
+          f"steady query_batch(B={B}) pruned:fused {qb_pm:.3f} ms, fused "
+          f"{qb_fm:.3f} ms")
+    if st.fallback:
+        print("  finding: the mid_mixture hot batch fell back to the full "
+              "scan at the default cap")
+    # where the pruned query's time goes, stage by stage (CUDA events; the
+    # phase A stage ends in its host sync of the keep mask)
+    bk = eng_m._backend
+    summ = bk.summary_for(eng_m.rank_table, eng_m.users)
+    stage_a = lambda: pruning.phase_a(summ, qs_hot, k=K)[0].cpu()
+    keep_np = stage_a().numpy()
+    union = np.flatnonzero(keep_np.any(axis=0))
+    ids_np = pruning.bucket_blocks(union, n_blocks=summ.n_blocks,
+                                   min_blocks=-(-K // bk.block_size))
+    ids = torch.from_numpy(ids_np).to(dev)
+    valid = torch.from_numpy(np.arange(ids_np.size) < union.size).to(dev)
+    keep_d = torch.from_numpy(keep_np).to(dev)
+    step1 = lambda: ops.bound_ranks_batched_pruned_stored(
+        eng_m.users, qs_hot, eng_m.rank_table, ids, block_n=bk.block_size)
+    bounds = step1()
+    t_a = time_ms(torch, stage_a, reps=10)
+    t_b = time_ms(torch, step1, reps=10)
+    t_c = time_ms(torch, lambda: pruning.finish_compacted(
+        *bounds, ids, valid, keep_d, M, K, C, N, bk.block_size), reps=10)
+    t_m = time_ms(torch, lambda: pruning.materialize(
+        bounds[0], ids, keep_d, N, float(M + 2), bk.block_size), reps=10)
+    t_s = time_ms(torch, lambda: query_mod.select_topk(
+        *bounds, k=K, c=C, m_items=M), reps=10)
+    print(f"  (iii) stages: phase A with its host sync {t_a:.3f} ms; K6 on "
+          f"{ids_np.size} tiles {t_b:.3f} ms; finish_compacted {t_c:.3f} "
+          f"ms, of which each of its two materialize calls {t_m:.3f} ms; "
+          f"select_topk alone on the compacted arrays {t_s:.3f} ms")
+    del eng_m, fused_m, mu_, mi_, bounds
 
     # 5. kernels against plain versions on the main path's inputs, timed
     print("phase: kernels vs plain at the main path's shapes, timed")
@@ -920,6 +1261,14 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
                 su, q, rt_s), reps=20)
             pms = time_ms(torch, lambda: ref.ref_bound_ranks_stored(
                 rows, uscale, uslack, q, qn, rt_s), reps=5)
+            # the wrapper's host work (checks, ‖q‖₁'s halving adds) can
+            # exceed a short launch; the launches alone, for comparison
+            buf = torch.empty((3, N, nb), dtype=torch.float32, device=dev)
+            launch_ms = time_ms(torch, lambda: quant_launch(
+                ops, (rows, uscale, uslack), q, qn, rt_s, buf), reps=20)
+            del buf
+            print(f"  {name}[B={nb}]: the launches alone, ‖q‖₁ and outputs "
+                  f"given, {launch_ms:.3f} ms")
             # least bytes: the stored rows, the per-user vectors, Q and
             # ‖q‖₁ once; per user K4's search of the thresholds row (one
             # per query, shared by its two keys), the table sectors this
@@ -942,6 +1291,88 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
             row(f"{name}[B={nb}]", f"src/repro/kernels/user_scores.py:{line}",
                 counts_q[name], err, ms, pms, need, flops,
                 src + "user_scores_quant.cu")
+
+    # K6/K7 on the forced pruned engines' kept tiles (phase 4c (ii)):
+    # bitwise the full scan's on the kept rows, the plain versions by the
+    # rules above, the bound over the kept rows only
+    for spec, name, line, source in (
+            ("f32", "k6_bound_ranks_masked", 191, "user_scores.cu"),
+            ("bf16", "k7_bound_ranks_bf16_masked", 460,
+             "user_scores_quant.cu"),
+            ("int8", "k7_bound_ranks_int8_masked", 460,
+             "user_scores_quant.cu")):
+        eng_p = forced[spec]["eng_p"]
+        rt_s = eng_p.rank_table
+        su = eng_p.users if eng_p.stored_users is None else \
+            eng_p.stored_users
+        summ = eng_p._backend.summary_for(rt_s, su)
+        bn = eng_p._backend.block_size
+        for nb in (B, 1):
+            q = qs[:nb].contiguous()
+            keep, _ = pruning.phase_a(summ, q, k=K)
+            union = np.flatnonzero(keep.cpu().numpy().any(axis=0))
+            ids = torch.from_numpy(pruning.bucket_blocks(
+                union, n_blocks=summ.n_blocks,
+                min_blocks=-(-K // bn))).to(dev)
+            got = ops.bound_ranks_batched_pruned_stored(su, q, rt_s, ids,
+                                                        block_n=bn)
+            full = ops.bound_ranks_batched_stored(su, q, rt_s)
+            ridx = pruning.row_indices(ids, bn).long()
+            live = ridx < N
+            for a, b_ in zip(got, full):
+                check(torch.equal(a[:, live], b_[:, ridx[live]]),
+                      f"{name} Netflix B={nb}: kept rows differ from the "
+                      "full scan's")
+            del full
+            uniq = torch.from_numpy(union.astype(np.int64)).to(dev)
+            g = pruning.row_indices(uniq, bn)
+            g = g[g < N]
+            # each kept row's column in the compacted outputs: its tile's
+            # first position in the list (a duplicate holds the same values)
+            pos_of = torch.full((summ.n_blocks,), ids.numel(),
+                                dtype=torch.int64, device=dev).scatter_reduce(
+                0, ids.long(), torch.arange(ids.numel(), device=dev), "amin")
+            cols = pos_of[g // bn] * bn + g % bn
+            kept = [x[:, cols].T.contiguous() for x in got]
+            label = f"{name} Netflix B={nb}, {union.size} kept tiles"
+            if spec == "f32":
+                err = check_k1(torch, ops, ref, su[g], q, rt_s.thresholds[g],
+                               rt_s.table[g], M, label, got=kept, name="K6")
+                plain = lambda: ref.ref_bound_ranks_masked(
+                    su, q, rt_s.thresholds, rt_s.table, M, ids, bn)
+                need, flops = step1_need(torch, query_mod, ops, su[g], q,
+                                         rt_s.take_rows(g))
+            else:
+                su_g = su.take_rows(g)
+                err, _ = check_quant(torch, ops, ref, query_mod, su_g, q,
+                                     rt_s.take_rows(g), label, got=kept)
+                rows_, usc, usl = ops.stored_parts(su, spec)
+                plain = lambda: ref.ref_bound_ranks_stored_masked(
+                    rows_, usc, usl, q, query_mod.query_l1(q), rt_s, ids,
+                    bn)
+                need, flops = step1_need(torch, query_mod, ops, su_g, q,
+                                         rt_s.take_rows(g))
+            del got, kept
+            # the kernel's time: its launches alone (masked_launch); the
+            # wrapper's, with its synchronizing check of the ids, beside
+            qn = query_mod.query_l1(q)
+            buf = torch.empty((3, ids.numel() * bn, nb), dtype=torch.float32,
+                              device=dev)
+            ms = time_ms(torch, lambda: masked_launch(
+                ops, su, q, qn, rt_s, ids, bn, buf), reps=20)
+            del buf
+            wrapper_ms = time_ms(
+                torch, lambda: ops.bound_ranks_batched_pruned_stored(
+                    su, q, rt_s, ids, block_n=bn), reps=20)
+            pms = time_ms(torch, plain, reps=5)
+            print(f"  {name}[B={nb}]: the wrapper, with its ids check, "
+                  f"{wrapper_ms:.3f} ms")
+            need += 4 * ids.numel() + 12 * ids.numel() * bn * nb
+            print(f"  {name} B={nb}: {union.size} kept tiles of "
+                  f"{summ.n_blocks} ({ids.numel()} launched, {g.numel()} "
+                  "kept rows)")
+            row(f"{name}[B={nb}]", f"src/repro/kernels/user_scores.py:{line}",
+                counts_p[name], err, ms, pms, need, flops, src + source)
     return out
 
 

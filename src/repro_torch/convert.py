@@ -3,7 +3,8 @@
 `from_reference` takes the reference's rank table, users, stored users,
 items and sample positions/weights as anything `numpy.asarray` accepts
 (the tests pass JAX arrays through numpy) and returns the port's tensors
-on a given device, so that both packages compute on the same state.
+on a given device, so that both packages compute on the same state;
+`summary_from_reference` does the same for a pruning `BlockSummary`.
 
 Every array keeps its storage dtype: f32 stays f32, int8 codes stay
 int8, and bf16 travels as its 16-bit pattern. NumPy has no bf16 of its
@@ -18,6 +19,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.pruning import BlockSummary
 from repro_torch.core.types import RankTable, StoredUsers
 from repro_torch.device import resolve_device
 
@@ -79,3 +81,15 @@ def from_reference(rank_table=None, users=None, items=None, positions=None,
     return ReferenceState(rank_table=rt, users=_f32(users, dev),
                           items=_f32(items, dev), positions=pos,
                           weights=_f32(weights, dev), stored_users=su)
+
+
+def summary_from_reference(summary, *, device=None) -> BlockSummary:
+    """The reference's `BlockSummary` (numpy-convertible fields) as the
+    port's, on `device`: f32 sketches and envelopes, int32 row counts,
+    m as a Python int; absent optional fields stay None."""
+    dev = resolve_device(device)
+    f = {name: _f32(getattr(summary, name), dev)
+         for name in BlockSummary._fields if name not in ("rows", "m")}
+    return BlockSummary(
+        rows=torch.from_numpy(np.array(summary.rows, dtype=np.int32)).to(dev),
+        m=int(np.asarray(summary.m)), **f)

@@ -11,20 +11,29 @@ Counterpart of `repro/core/backends.py`, with two registered backends:
 `users` is the raw (n, d) matrix at f32 storage and `StoredUsers` at
 bf16 and int8.
 
+and one registered wrapper:
+
+  "pruned:<inner>" — block-pruned execution (`core.pruning`): phase A
+            keeps the user tiles that can hold answers, phase B runs
+            step 1 on them only ("pruned" alone is "pruned:dense").
+
 `bound_ranks` takes a (B, d) block and returns (B, n) bounds; `select`
 realizes §4.3 steps 2-3; `query_batch` composes the two. Wrapper specs
-`"<prefix>:<inner>"` resolve through `register_wrapper`; none is
-registered yet, so such a spec raises like an unknown name.
+`"<prefix>:<inner>"` resolve through `register_wrapper`.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Callable, Dict, Optional, Type
 
+import numpy as np
 import torch
 
+from repro_torch.core import pruning
 from repro_torch.core import query as query_mod
 from repro_torch.core import rank_table as rt_mod
-from repro_torch.core.types import QueryResult, RankTable, RankTableConfig
+from repro_torch.core.types import QueryResult, RankTable, \
+    RankTableConfig, take_user_rows
 from repro_torch.kernels import ops
 
 
@@ -121,3 +130,107 @@ class FusedBackend(QueryBackend):
 
     def bound_ranks(self, rt, users, qs):
         return ops.bound_ranks_batched_stored(users, qs.contiguous(), rt)
+
+
+@register_backend("pruned")
+class PrunedBackend(QueryBackend):
+    """Two-phase block-pruned execution around an inner backend.
+
+    Phase A scores the per-block summaries against the whole query block
+    and keeps the user tiles that can still hold an answer; phase B runs
+    the inner backend's step 1 over the kept tiles only, and skipped
+    users read the dominated sentinel m + 2, so the selection returns
+    the full scan's indices bit for bit (`core.pruning`):
+
+      pruned:dense   gathered rows, `pruning.pruned_query_batch`;
+      pruned:fused   K6 (f32) or K7 (bf16, int8) over the kept tiles on
+                     CUDA tensors, their plain versions on CPU tensors
+                     (`ops.bound_ranks_batched_pruned_stored`);
+      other inners   the inner's `bound_ranks` on the gathered rows.
+
+    Summaries are cached by the identity of (users, thresholds, table),
+    four generations, each entry holding references to its arrays so
+    that their ids cannot be reused while it lives. Phase A's keep mask
+    is read on the host: when its union exceeds `max_union_frac` of the
+    blocks, the inner backend runs the full scan instead
+    (`stats.fallback = "dense"`). `use_cones=False` prunes on the
+    coordinate boxes alone.
+    """
+
+    _SUMMARY_CACHE = 4          # index generations kept
+
+    def __init__(self, inner="dense", *, block_size: Optional[int] = None,
+                 max_union_frac: float = 0.5, use_cones: bool = True):
+        self.inner = get_backend(inner)
+        self.name = f"pruned:{self.inner.name}"
+        self.block_size = int(block_size or pruning.DEFAULT_BLOCK)
+        self.max_union_frac = float(max_union_frac)
+        self.use_cones = bool(use_cones)
+        self._summaries: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self.stats = pruning.PruneStats()   # last query_batch's accounting
+
+    def bound_ranks(self, rt, users, qs):
+        """Full (B, n) bounds come from the inner backend: pruning
+        applies to the end-to-end query."""
+        return self.inner.bound_ranks(rt, users, qs)
+
+    def build_index(self, users, items, cfg, generator=None, *,
+                    positions=None, weights=None):
+        rt = self.inner.build_index(users, items, cfg, generator,
+                                    positions=positions, weights=weights)
+        self.summary_for(rt, users)         # pre-warm this generation
+        return rt
+
+    def summary_for(self, rt: RankTable, users) -> pruning.BlockSummary:
+        """The `BlockSummary` of this index generation (identity-cached)."""
+        key = (id(users), id(rt.thresholds), id(rt.table), self.block_size,
+               self.use_cones)
+        hit = self._summaries.get(key)
+        if hit is not None:
+            self._summaries.move_to_end(key)
+            return hit[1]
+        summary = pruning.build_block_summary(
+            users, rt, block_size=self.block_size, with_cones=self.use_cones)
+        self._summaries[key] = ((users, rt.thresholds, rt.table), summary)
+        while len(self._summaries) > self._SUMMARY_CACHE:
+            self._summaries.popitem(last=False)
+        return summary
+
+    def query_batch(self, rt, users, qs, *, k, c):
+        n = users.shape[0]
+        bs = self.block_size
+        nb = -(-n // bs)
+        keep, _ = pruning.phase_a(self.summary_for(rt, users), qs, k=k)
+        keep_np = keep.cpu().numpy()                        # host sync
+        union = np.flatnonzero(keep_np.any(axis=0))
+        per_q = float(keep_np.mean())
+        self.stats = pruning.PruneStats(
+            n_blocks=nb, kept_union=int(union.size), kept_per_query=per_q)
+        if union.size > self.max_union_frac * nb:
+            self.stats.fallback = "dense"
+            return self.inner.query_batch(rt, users, qs, k=k, c=c)
+        ids_np = pruning.bucket_blocks(union, n_blocks=nb,
+                                       min_blocks=-(-k // bs))
+        ids = torch.from_numpy(ids_np).to(qs.device)
+        # padding tiles repeat kept ids; marking them invalid keeps a user
+        # from being a candidate twice
+        blk_valid = torch.from_numpy(
+            np.arange(ids_np.size) < max(union.size, 1)).to(qs.device)
+        if type(self.inner) is DenseBackend:
+            return pruning.pruned_query_batch(rt, users, qs, ids, blk_valid,
+                                              keep, k, c, block_size=bs)
+        if type(self.inner) is FusedBackend:
+            r_lo, r_up, est = ops.bound_ranks_batched_pruned_stored(
+                users, qs.contiguous(), rt, ids, block_n=bs)
+        else:
+            g = torch.clamp(pruning.row_indices(ids, bs), max=n - 1)
+            r_lo, r_up, est = self.inner.bound_ranks(
+                rt.take_rows(g), take_user_rows(users, g), qs)
+        return pruning.finish_compacted(r_lo, r_up, est, ids, blk_valid,
+                                        keep, rt.m, k, c, n, bs)
+
+
+@register_wrapper("pruned")
+def _make_pruned(inner: str) -> PrunedBackend:
+    """`get_backend("pruned:<inner>")` lands here."""
+    return PrunedBackend(inner)

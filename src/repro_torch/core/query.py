@@ -43,10 +43,22 @@ def _dequant_matmul(rows: torch.Tensor, scale: Optional[torch.Tensor],
 
 
 def query_l1(qs: torch.Tensor) -> torch.Tensor:
-    """‖q‖₁ per query, (B,) f32: the factor of every score slack. A
-    caller that compares two computations of the slack passes both the
-    same tensor, since another summation order moves its last bit."""
-    return qs.abs().sum(dim=1)
+    """‖q‖₁ per query, (B,) f32: the factor of every score slack.
+
+    Summed in one fixed order that depends on d alone: |q| is padded with
+    zeros to a power of two along d and halved by elementwise adds,
+    x[:, :h] + x[:, h:], until one column is left. Elementwise IEEE adds
+    give the same bits on the CPU and on CUDA, and for a query whatever
+    the batch it comes in, so `query(q)` sees row 0's slack of
+    `query_batch`. (A reduction kernel's order may depend on B.)"""
+    x = qs.abs()
+    width = 1 << max(x.shape[1] - 1, 0).bit_length()
+    if width > x.shape[1]:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[1]))
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        x = x[:, :h] + x[:, h:]
+    return x[:, 0].contiguous()
 
 
 def user_scores_batch(users, qs: torch.Tensor
@@ -250,24 +262,9 @@ def lookup_bounds_batch(rt: RankTable, uq: torch.Tensor,
     t_lo = torch.gather(tab, 1, lo_col)
     r_up = torch.where(idx == 0, m_plus_1, t_up)
     r_lo = torch.where(idx == tau, 1.0, t_lo)
-
-    lo_thr = torch.gather(thr, 1, up_col)
-    hi_thr = torch.gather(thr, 1, lo_col)
-    span = torch.clamp(hi_thr - lo_thr, min=1e-12)
-    frac = torch.clamp((uq - lo_thr) / span, 0.0, 1.0)
-    interior = (idx > 0) & (idx < tau)
-    est_in = r_up + (r_lo - r_up) * frac
-    t_lo_edge = thr[:, :1]
-    t_hi_edge = thr[:, tau - 1:tau]
-    rng = torch.clamp(t_hi_edge - t_lo_edge, min=1e-12)
-    m_above = torch.clamp(uq - t_hi_edge, min=0.0) / rng
-    m_below = torch.clamp(t_lo_edge - uq, min=0.0) / rng
-    est_above = 1.0 + (r_up - 1.0) / (1.0 + tau * m_above)
-    est_below = m_plus_1 - (m_plus_1 - r_lo) * torch.exp(-tau * m_below)
-    est = torch.where(interior, est_in,
-                      torch.where(idx == tau, est_above, est_below))
-    est = torch.minimum(torch.maximum(est, r_lo), r_up)
-    return r_lo, r_up, est - 0.5 * m_above / (1.0 + m_above)
+    return r_lo, r_up, _est_from_grid(
+        uq, idx, torch.gather(thr, 1, up_col), torch.gather(thr, 1, lo_col),
+        thr[:, :1], thr[:, tau - 1:tau], r_lo, r_up, tau, m_plus_1)
 
 
 def bound_ranks_batch(rt: RankTable, users, qs: torch.Tensor

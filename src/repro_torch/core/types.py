@@ -83,10 +83,23 @@ class StoredUsers(NamedTuple):
     def shape(self):
         return self.rows.shape
 
+    def take_rows(self, idx: torch.Tensor) -> "StoredUsers":
+        """Row-gather; the scale and slack vectors travel with their rows."""
+        g = lambda a: None if a is None else a[idx]
+        return StoredUsers(rows=self.rows[idx], scale=g(self.scale),
+                           row_slack=g(self.row_slack))
+
 
 def stored_rows(users) -> torch.Tensor:
     """The raw row tensor of either a plain (n, d) tensor or StoredUsers."""
     return users.rows if isinstance(users, StoredUsers) else users
+
+
+def take_user_rows(users, idx: torch.Tensor):
+    """Row-gather either user representation (pruned phase B)."""
+    if isinstance(users, StoredUsers):
+        return users.take_rows(idx)
+    return users[idx]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,6 +265,18 @@ class RankTable(NamedTuple):
         if self.thresholds.dtype == torch.bfloat16:
             return "bf16"
         return "f32"
+
+    _QUANT_FIELDS = ("thr_scale", "thr_off", "tab_scale", "tab_off",
+                     "thr_dev")
+
+    def take_rows(self, idx: torch.Tensor) -> "RankTable":
+        """Row-gather every row-aligned field; the int8 vectors travel
+        with their rows."""
+        g = lambda a: None if a is None else a[idx]
+        return RankTable(thresholds=self.thresholds[idx],
+                         table=self.table[idx], m=self.m,
+                         **{f: g(getattr(self, f))
+                            for f in self._QUANT_FIELDS})
 
 
 class QueryResult(NamedTuple):

@@ -34,13 +34,20 @@ I = ctypes.c_int
 F = ctypes.c_float
 # symbol → argtypes; every entry returns the cudaError_t of its launch
 SIGNATURES = {
-    "user_scores": {"k1_bound_ranks": (P, P, P, P, P, P, P, I, I, I, I, I,
-                                       F, P)},
+    "user_scores": {
+        "k1_bound_ranks": (P, P, P, P, P, P, P, I, I, I, I, I, F, P),
+        "k6_bound_ranks_masked": (P, P, P, P, P, P, P, P, I, I, I, I, I, F,
+                                  I, I, P)},
     "user_scores_quant": {
         "k4_bound_ranks_bf16": (P, I, P, P, P, P, P, P, P, P, I, I, I, I, I,
                                 F, F, F, P),
         "k5_bound_ranks_int8": (P, I, P, P, P, P, P, P, P, P, P, P, P, P, P,
-                                I, I, I, I, I, F, F, F, F, P)},
+                                I, I, I, I, I, F, F, F, F, P),
+        "k7_bound_ranks_bf16_masked": (P, I, P, P, P, P, P, P, P, P, P, I, I,
+                                       I, I, I, F, F, F, I, I, P),
+        "k7_bound_ranks_int8_masked": (P, I, P, P, P, P, P, P, P, P, P, P, P,
+                                       P, P, P, I, I, I, I, I, F, F, F, F, I,
+                                       I, P)},
     "table_build": {"k2_table_build": (P, P, P, P, P, I, I, I, I, P)},
     "exact_rank": {"k3_exact_ranks": (P, P, P, P, I, I, I, P)},
 }

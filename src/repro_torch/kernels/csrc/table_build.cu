@@ -20,6 +20,14 @@
 // ascending order; where the weights are dyadic (all |P_l|/s equal, as
 // at Netflix's 17,770 items: 1777/64) every partial sum is exact, and the
 // result equals the plain version's wherever the scores agree.
+//
+// Shapes of any size: where the 8 user rows, a 32-sample chunk and the S
+// scores do not fit in the 227 KB of shared memory a block may opt in to,
+// the depth is taken 256 at a time (the user rows then restaged with
+// each sample chunk) and the samples in runs of at most `scap`, whose
+// partial counts wait in the output row. Each dot product still runs
+// over k in ascending order, and each count over s in ascending order
+// from 0, so the table is bitwise the same however it is cut.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -28,66 +36,102 @@ namespace {
 constexpr int kUsers = 8;    // users per block, one warp each
 constexpr int kChunk = 32;   // samples per shared-memory chunk, one per lane
 constexpr int kTauReg = 16;  // thresholds per lane per pass
+constexpr int kDepth = 256;  // depth of a chunk when the rows do not fit
+constexpr size_t kSmemOptin = 227 * 1024;
 
+// An odd row stride keeps the 32 lanes' sample rows on distinct banks
+__host__ __device__ constexpr int row_stride(int dk) {
+  return dk % 2 == 0 ? dk + 1 : dk;
+}
+
+size_t smem_bytes(int dk, int scap) {
+  return sizeof(float) * ((size_t)(kUsers + kChunk) * row_stride(dk) +
+                          (size_t)kUsers * scap + scap);
+}
+
+// dk: depth held at once (d: whole rows); scap: scores held at once
 __global__ void __launch_bounds__(kUsers * 32)
 table_build_kernel(const float* __restrict__ U, const float* __restrict__ P,
                    const float* __restrict__ w,
                    const float* __restrict__ thr, float* __restrict__ out,
-                   int n, int d, int S, int tau, int stride) {
+                   int n, int d, int S, int tau, int dk, int scap) {
   extern __shared__ float smem[];
+  const int stride = row_stride(dk);
   float* us = smem;                      // (kUsers, stride)
   float* ps = us + kUsers * stride;      // (kChunk, stride)
-  float* sc = ps + kChunk * stride;      // (kUsers, S)
-  float* ws = sc + kUsers * S;           // (S,)
+  float* sc = ps + kChunk * stride;      // (kUsers, scap)
+  float* ws = sc + kUsers * scap;        // (scap,)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int user0 = blockIdx.x * kUsers;
+  const bool resident = dk == d;
+  const int user = user0 + warp;
 
-  for (int i = threadIdx.x; i < kUsers * d; i += blockDim.x) {
-    const int r = i / d, k = i % d;
-    us[r * stride + k] = user0 + r < n ? U[(size_t)(user0 + r) * d + k] : 0.f;
-  }
-  for (int i = threadIdx.x; i < S; i += blockDim.x) ws[i] = w[i];
-
-  for (int s0 = 0; s0 < S; s0 += kChunk) {
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = threadIdx.x; i < kChunk * d; i += blockDim.x) {
+  if (resident) {
+    for (int i = threadIdx.x; i < kUsers * d; i += blockDim.x) {
       const int r = i / d, k = i % d;
-      ps[r * stride + k] = s0 + r < S ? P[(size_t)(s0 + r) * d + k] : 0.f;
+      us[r * stride + k] =
+          user0 + r < n ? U[(size_t)(user0 + r) * d + k] : 0.f;
+    }
+  }
+  for (int sb = 0; sb < S; sb += scap) {
+    const int slen = min(scap, S - sb);
+    __syncthreads();  // the previous run's scores are consumed
+    for (int i = threadIdx.x; i < slen; i += blockDim.x) ws[i] = w[sb + i];
+    for (int s0 = 0; s0 < slen; s0 += kChunk) {
+      float acc = 0.f;
+      for (int k0 = 0; k0 < d; k0 += dk) {
+        const int klen = min(dk, d - k0);
+        __syncthreads();  // the previous chunk is consumed
+        if (!resident) {
+          for (int i = threadIdx.x; i < kUsers * klen; i += blockDim.x) {
+            const int r = i / klen, k = i % klen;
+            us[r * stride + k] =
+                user0 + r < n ? U[(size_t)(user0 + r) * d + k0 + k] : 0.f;
+          }
+        }
+        for (int i = threadIdx.x; i < kChunk * klen; i += blockDim.x) {
+          const int r = i / klen, k = i % klen;
+          const int s = sb + s0 + r;
+          ps[r * stride + k] =
+              s0 + r < slen ? P[(size_t)s * d + k0 + k] : 0.f;
+        }
+        __syncthreads();
+        if (s0 + lane < slen) {
+          const float* ur = us + warp * stride;
+          const float* pr = ps + lane * stride;
+          for (int k = 0; k < klen; ++k) acc = fmaf(ur[k], pr[k], acc);
+        }
+      }
+      if (s0 + lane < slen) sc[warp * scap + s0 + lane] = acc;
     }
     __syncthreads();
-    if (s0 + lane < S) {
-      const float* ur = us + warp * stride;
-      const float* pr = ps + lane * stride;
-      float acc = 0.f;
-      for (int k = 0; k < d; ++k) acc = fmaf(ur[k], pr[k], acc);
-      sc[warp * S + s0 + lane] = acc;
-    }
-  }
-  __syncthreads();
 
-  const int user = user0 + warp;
-  if (user >= n) return;
-  const float* t = thr + (size_t)user * tau;
-  float* o = out + (size_t)user * tau;
-  const float* scu = sc + warp * S;
-  for (int j0 = 0; j0 < tau; j0 += 32 * kTauReg) {
-    float tr[kTauReg], acc[kTauReg];
+    if (user < n) {
+      const float* t = thr + (size_t)user * tau;
+      float* o = out + (size_t)user * tau;
+      const float* scu = sc + warp * scap;
+      const bool last = sb + slen == S;
+      for (int j0 = 0; j0 < tau; j0 += 32 * kTauReg) {
+        float tr[kTauReg], acc[kTauReg];
 #pragma unroll
-    for (int r = 0; r < kTauReg; ++r) {
-      const int j = j0 + lane + 32 * r;
-      tr[r] = j < tau ? t[j] : INFINITY;
-      acc[r] = 0.f;
-    }
-    for (int s = 0; s < S; ++s) {
-      const float v = scu[s], wv = ws[s];
+        for (int r = 0; r < kTauReg; ++r) {
+          const int j = j0 + lane + 32 * r;
+          tr[r] = j < tau ? t[j] : INFINITY;
+          // a count continues from the previous run's partial sum
+          acc[r] = sb > 0 && j < tau ? o[j] : 0.f;
+        }
+        for (int s = 0; s < slen; ++s) {
+          const float v = scu[s], wv = ws[s];
 #pragma unroll
-      for (int r = 0; r < kTauReg; ++r) acc[r] += v > tr[r] ? wv : 0.f;
-    }
+          for (int r = 0; r < kTauReg; ++r) acc[r] += v > tr[r] ? wv : 0.f;
+        }
 #pragma unroll
-    for (int r = 0; r < kTauReg; ++r) {
-      const int j = j0 + lane + 32 * r;
-      if (j < tau) o[j] = 1.f + acc[r];
+        for (int r = 0; r < kTauReg; ++r) {
+          const int j = j0 + lane + 32 * r;
+          if (j < tau) o[j] = last ? 1.f + acc[r] : acc[r];
+        }
+      }
     }
   }
 }
@@ -98,18 +142,23 @@ extern "C" int k2_table_build(const float* U, const float* P, const float* w,
                               const float* thr, float* out, int n, int d,
                               int S, int tau, void* stream) {
   if (n <= 0 || tau <= 0) return 0;
-  // an odd row stride keeps the 32 lanes' sample rows on distinct banks
-  const int stride = d % 2 == 0 ? d + 1 : d;
-  const size_t smem =
-      sizeof(float) * ((size_t)(kUsers + kChunk) * stride +
-                       (size_t)kUsers * S + S);
+  if (d <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  int dk = d, scap = S;
+  if (smem_bytes(dk, scap) > kSmemOptin) {
+    dk = d < kDepth ? d : kDepth;
+    const size_t rest = kSmemOptin / sizeof(float) -
+                        (size_t)(kUsers + kChunk) * row_stride(dk);
+    const size_t cap = rest / (kUsers + 1) / kChunk * kChunk;
+    scap = (size_t)S < cap ? S : (int)cap;
+  }
+  const size_t smem = smem_bytes(dk, scap);
   cudaError_t err = cudaFuncSetAttribute(
       table_build_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n + kUsers - 1) / kUsers;
   table_build_kernel<<<blocks, kUsers * 32, smem, (cudaStream_t)stream>>>(
-      U, P, w, thr, out, n, d, S, tau, stride);
+      U, P, w, thr, out, n, d, S, tau, dk, scap);
   return (int)cudaGetLastError();
 }
 

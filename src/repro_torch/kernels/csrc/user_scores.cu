@@ -32,6 +32,23 @@
 // the row, staged in the warp's shared memory.
 // The first lane of each query's group finishes that query. Ragged n, d,
 // tau and B are masked here; nothing is padded.
+//
+// Qᵀ lives in shared memory whole while d·stride fits in the default 48
+// KB (d <= 409 at 16 queries); a larger d streams it through in chunks
+// of 256 rows, the block synchronising between chunks. A chunk is a
+// multiple of 32 rows, so lane l still accumulates k = l, l+32, ... in
+// ascending order with one fmaf chain, and every score is bitwise the
+// same whole or streamed.
+//
+// K6 (k6_bound_ranks_masked) is this kernel behind a row map. It replaces
+// the TPU kernel repro/kernels/user_scores.py
+// bound_ranks_batched_masked_kernel_call, the masked grid of block
+// pruning: the warp that owns compact row r reads global row
+// ids[r / block_n]·block_n + r % block_n, and writes compact row r of
+// the outputs. A compact row past n (the tail block's padding) is
+// written as m + 2 in all three outputs. Every other row computes
+// exactly what K1 computes for that user, so the kept tiles of K6 are
+// bitwise K1's outputs on the same rows.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -43,6 +60,8 @@ constexpr int kUChunk = 8;    // user-row floats each lane loads at once
 constexpr int kTChunk = 16;   // thresholds each lane loads at once
 constexpr int kTile = 32 * kTChunk;  // thresholds a warp searches at once
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kQChunk = 256;  // rows of Qᵀ a streamed chunk holds
+constexpr size_t kSmemDefault = 48 * 1024;
 
 // Row stride of Qᵀ in shared memory: lanes read a row each as float4s,
 // and a stride of 20 (NB = 16) or 12 (NB = 8) floats keeps the eight
@@ -78,75 +97,132 @@ __device__ __forceinline__ void halve(T (&v)[NB], int lane) {
   }
 }
 
+// Rows [c0, c0 + len) of Qᵀ into shared memory: qs[k - c0][b]
 template <int NB>
+__device__ __forceinline__ void stage_q(float* qs, const float* Q, int B,
+                                        int d, int c0, int len) {
+  constexpr int kStride = q_stride<NB>();
+  for (int i = threadIdx.x; i < len * NB; i += blockDim.x) {
+    const int k = i / NB, b = i % NB;
+    qs[k * kStride + b] = b < B ? Q[(size_t)b * d + c0 + k] : 0.f;
+  }
+}
+
+// acc[b] += u_k·q_bk over this lane's k in [c0, c1), one fmaf each in
+// ascending k; qs holds rows c0.. of Qᵀ
+template <int NB>
+__device__ __forceinline__ void dot_chunk(float (&acc)[NB],
+                                          const float* __restrict__ u,
+                                          const float* qs, int c0, int c1,
+                                          int lane) {
+  constexpr int kStride = q_stride<NB>();
+  for (int k0 = c0; k0 < c1; k0 += 32 * kUChunk) {
+    float uv[kUChunk];
+#pragma unroll
+    for (int i = 0; i < kUChunk; ++i) {
+      const int k = k0 + lane + 32 * i;
+      uv[i] = k < c1 ? u[k] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kUChunk; ++i) {
+      const int k = k0 + lane + 32 * i;
+      if (k < c1) {
+        const float* qk = qs + (k - c0) * kStride;
+        float qv[NB];
+        if constexpr (NB >= 4) {
+#pragma unroll
+          for (int c = 0; c < NB / 4; ++c) {
+            const float4 x = reinterpret_cast<const float4*>(qk)[c];
+            qv[4 * c] = x.x;
+            qv[4 * c + 1] = x.y;
+            qv[4 * c + 2] = x.z;
+            qv[4 * c + 3] = x.w;
+          }
+        } else {
+#pragma unroll
+          for (int b = 0; b < NB; ++b) qv[b] = qk[b];
+        }
+#pragma unroll
+        for (int b = 0; b < NB; ++b) acc[b] = fmaf(uv[i], qv[b], acc[b]);
+      }
+    }
+  }
+}
+
+// rows: compact rows to compute (n without a row map); ids: the row map
+// (nullptr: identity), one id per block_n rows; qrows: rows of Qᵀ in
+// shared memory at once. STREAM is qrows < d: only then does the loop
+// hold block barriers, which would otherwise fence the compiler's
+// scheduling of the loads of consecutive users. MASKED is ids != nullptr
+// (K6): without it every row is a live user, and K1's loop is free of
+// the map's dependent loads and branches.
+template <int NB, bool STREAM, bool MASKED>
 __global__ void __launch_bounds__(kWarps * 32)
 bound_ranks_kernel(const float* __restrict__ U, const float* __restrict__ Q,
                    const float* __restrict__ thr,
                    const float* __restrict__ tab, float* __restrict__ r_lo,
                    float* __restrict__ r_up, float* __restrict__ est, int n,
-                   int d, int B, int tau, int ldo, float m_plus_1) {
-  constexpr int kStride = q_stride<NB>();
+                   int d, int B, int tau, int ldo, float m_plus_1,
+                   const int* __restrict__ ids, int block_n, int rows,
+                   int qrows) {
   constexpr int kShift = 5 - log2_nb<NB>();  // lanes per query: 1 << kShift
-  extern __shared__ __align__(16) float qs[];  // (d, kStride): qs[k][b]
-  float* ts = qs + d * kStride + (threadIdx.x >> 5) * kTile;  // warp tile
-  for (int i = threadIdx.x; i < d * NB; i += blockDim.x) {
-    const int k = i / NB, b = i % NB;
-    qs[k * kStride + b] = b < B ? Q[(size_t)b * d + k] : 0.f;
+  extern __shared__ __align__(16) float qs[];  // (qrows, stride): qs[k][b]
+  float* ts = qs + qrows * q_stride<NB>() + (threadIdx.x >> 5) * kTile;
+  if constexpr (!STREAM) {
+    stage_q<NB>(qs, Q, B, d, 0, d);
+    __syncthreads();
   }
-  __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int my_b = lane >> kShift;
   const bool finisher = (lane & ((1 << kShift) - 1)) == 0 && my_b < B;
   const float ftau = (float)tau;
 
-  for (int user = blockIdx.x * kWarps + warp; user < n;
-       user += gridDim.x * kWarps) {
+  // every warp of a block runs the same iterations, so that a streamed
+  // Qᵀ can synchronise the block; a warp without a row only stages
+  for (int r0 = blockIdx.x * kWarps; r0 < rows;
+       r0 += gridDim.x * kWarps) {
+    const int r = r0 + warp;
+    if (!STREAM && r >= rows) break;
+    int user = r;
+    bool live = r < rows;  // a live row computes a user
+    if constexpr (MASKED) {
+      user = r < rows ? ids[r / block_n] * block_n + r % block_n : n;
+      live = user < n;
+      if (r < rows && !live && finisher) {  // past n: m + 2
+        const size_t o = (size_t)r * ldo + my_b;
+        r_lo[o] = r_up[o] = est[o] = m_plus_1 + 1.f;
+      }
+    }
+    if (!STREAM && !live) continue;
     const float* u = U + (size_t)user * d;
     const float* t = thr + (size_t)user * tau;
     // the first chunk of thresholds does not depend on the scores: its
     // loads go out now and overlap those of the user row
     float tv[kTChunk];
     if constexpr (NB > 1) {
+      if (live) {
 #pragma unroll
-      for (int i = 0; i < kTChunk; ++i) {
-        const int j = lane + 32 * i;
-        tv[i] = j < tau ? t[j] : 0.f;
+        for (int i = 0; i < kTChunk; ++i) {
+          const int j = lane + 32 * i;
+          tv[i] = j < tau ? t[j] : 0.f;
+        }
       }
     }
     float acc[NB];
 #pragma unroll
     for (int b = 0; b < NB; ++b) acc[b] = 0.f;
-    for (int k0 = 0; k0 < d; k0 += 32 * kUChunk) {
-      float uv[kUChunk];
-#pragma unroll
-      for (int i = 0; i < kUChunk; ++i) {
-        const int k = k0 + lane + 32 * i;
-        uv[i] = k < d ? u[k] : 0.f;
+    if constexpr (STREAM) {
+      for (int c0 = 0; c0 < d; c0 += qrows) {
+        const int c1 = min(d, c0 + qrows);
+        __syncthreads();  // every warp is done with the previous chunk
+        stage_q<NB>(qs, Q, B, d, c0, c1 - c0);
+        __syncthreads();
+        if (live) dot_chunk<NB>(acc, u, qs, c0, c1, lane);
       }
-#pragma unroll
-      for (int i = 0; i < kUChunk; ++i) {
-        const int k = k0 + lane + 32 * i;
-        if (k < d) {
-          const float* qk = qs + k * kStride;
-          float qv[NB];
-          if constexpr (NB >= 4) {
-#pragma unroll
-            for (int c = 0; c < NB / 4; ++c) {
-              const float4 x = reinterpret_cast<const float4*>(qk)[c];
-              qv[4 * c] = x.x;
-              qv[4 * c + 1] = x.y;
-              qv[4 * c + 2] = x.z;
-              qv[4 * c + 3] = x.w;
-            }
-          } else {
-#pragma unroll
-            for (int b = 0; b < NB; ++b) qv[b] = qk[b];
-          }
-#pragma unroll
-          for (int b = 0; b < NB; ++b) acc[b] = fmaf(uv[i], qv[b], acc[b]);
-        }
-      }
+      if (!live) continue;
+    } else {
+      dot_chunk<NB>(acc, u, qs, 0, d, lane);
     }
     halve<NB, NB, 16>(acc, lane);
     const float s = acc[0];  // u·q_{my_b}
@@ -210,7 +286,7 @@ bound_ranks_kernel(const float* __restrict__ U, const float* __restrict__ Q,
       float e = interior ? est_in : (idx == tau ? est_above : est_below);
       e = fminf(fmaxf(e, rlo), rup);
       e = e - 0.5f * m_above / (1.f + m_above);
-      const size_t o = (size_t)user * ldo + my_b;
+      const size_t o = (size_t)r * ldo + my_b;
       r_lo[o] = rlo;
       r_up[o] = rup;
       est[o] = e;
@@ -221,18 +297,52 @@ bound_ranks_kernel(const float* __restrict__ U, const float* __restrict__ Q,
 template <int NB>
 int launch(const float* U, const float* Q, const float* thr,
            const float* tab, float* r_lo, float* r_up, float* est, int n,
-           int d, int B, int tau, int ldo, float m_plus_1,
-           cudaStream_t stream) {
+           int d, int B, int tau, int ldo, float m_plus_1, const int* ids,
+           int block_n, int rows, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int want = (n + kWarps - 1) / kWarps;
+  const int want = (rows + kWarps - 1) / kWarps;
   const int blocks = want < sms * 8 ? want : sms * 8;
-  const size_t smem =
-      ((size_t)d * q_stride<NB>() + kWarps * kTile) * sizeof(float);
-  bound_ranks_kernel<NB><<<blocks, kWarps * 32, smem, stream>>>(
-      U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo, m_plus_1);
+  const size_t tiles = (size_t)kWarps * kTile;
+  const int qrows =
+      ((size_t)d * q_stride<NB>() + tiles) * sizeof(float) <= kSmemDefault
+          ? d
+          : kQChunk;
+  const size_t smem = ((size_t)qrows * q_stride<NB>() + tiles) * sizeof(float);
+  auto kernel =
+      qrows < d ? (ids ? bound_ranks_kernel<NB, true, true>
+                       : bound_ranks_kernel<NB, true, false>)
+                : (ids ? bound_ranks_kernel<NB, false, true>
+                       : bound_ranks_kernel<NB, false, false>);
+  kernel<<<blocks, kWarps * 32, smem, stream>>>(
+      U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo, m_plus_1, ids,
+      block_n, rows, qrows);
   return (int)cudaGetLastError();
+}
+
+int dispatch(const float* U, const float* Q, const float* thr,
+             const float* tab, float* r_lo, float* r_up, float* est, int n,
+             int d, int B, int tau, int ldo, float m_plus_1, const int* ids,
+             int block_n, int rows, void* stream) {
+  if (rows <= 0 || B <= 0) return 0;
+  if (B > kMaxB || tau < 1 || n <= 0 || d <= 0 || (ids && block_n <= 0))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (B == 1)
+    return launch<1>(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
+                     m_plus_1, ids, block_n, rows, st);
+  if (B == 2)
+    return launch<2>(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
+                     m_plus_1, ids, block_n, rows, st);
+  if (B <= 4)
+    return launch<4>(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
+                     m_plus_1, ids, block_n, rows, st);
+  if (B <= 8)
+    return launch<8>(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
+                     m_plus_1, ids, block_n, rows, st);
+  return launch<16>(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
+                    m_plus_1, ids, block_n, rows, st);
 }
 
 }  // namespace
@@ -243,23 +353,21 @@ extern "C" int k1_bound_ranks(const float* U, const float* Q,
                               float* r_lo, float* r_up, float* est, int n,
                               int d, int B, int tau, int ldo,
                               float m_plus_1, void* stream) {
-  if (n <= 0 || B <= 0) return 0;
-  if (B > kMaxB || tau < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (B == 1)
-    return launch<1>(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
-                     m_plus_1, st);
-  if (B == 2)
-    return launch<2>(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
-                     m_plus_1, st);
-  if (B <= 4)
-    return launch<4>(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
-                     m_plus_1, st);
-  if (B <= 8)
-    return launch<8>(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
-                     m_plus_1, st);
-  return launch<16>(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
-                    m_plus_1, st);
+  return dispatch(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
+                  m_plus_1, nullptr, 1, n, stream);
+}
+
+// K6: K1 over the nk tiles of block_n rows named by ids (nk,); outputs
+// are compact, (nk·block_n) rows with row stride ldo, in list order.
+extern "C" int k6_bound_ranks_masked(const float* U, const float* Q,
+                                     const float* thr, const float* tab,
+                                     const int* ids, float* r_lo,
+                                     float* r_up, float* est, int n, int d,
+                                     int B, int tau, int ldo,
+                                     float m_plus_1, int nk, int block_n,
+                                     void* stream) {
+  return dispatch(U, Q, thr, tab, r_lo, r_up, est, n, d, B, tau, ldo,
+                  m_plus_1, ids, block_n, nk * block_n, stream);
 }
 
 extern "C" const char* repro_error_string(int code) {

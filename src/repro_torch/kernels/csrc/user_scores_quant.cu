@@ -45,7 +45,17 @@
 // at a time, hands each (user, query) to its own lane, and then all 32
 // lanes finish their pairs at once. A lane loads its user's scalars
 // (slack, scales, offsets, edge thresholds) before the batch's scores.
-// Ragged n, d, tau and B are masked; nothing is padded.
+// Ragged n, d, tau and B are masked; nothing is padded. As in K1, Qᵀ
+// streams through shared memory in chunks of 256 rows where it does not
+// fit whole, which keeps each lane's fmaf order and so every score.
+//
+// K7 (k7_bound_ranks_bf16_masked, k7_bound_ranks_int8_masked) is this
+// kernel behind K6's row map. It replaces the TPU kernel
+// repro/kernels/user_scores.py bound_ranks_batched_quant_masked_kernel_call:
+// compact row r computes global row ids[r / block_n]·block_n + r % block_n,
+// whose per-row vectors (slack, scales, offsets, thr_dev) are read at the
+// same global row, and a compact row past n is written as m + 2 in all
+// three outputs. The kept tiles of K7 are bitwise K4's / K5's outputs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,6 +69,8 @@ constexpr int kUChunk = 8;    // user-row values each lane loads at once
 constexpr int kTChunk = 16;   // thresholds each lane loads at once
 constexpr int kTile = 32 * kTChunk;  // thresholds a warp searches at once
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kQChunk = 256;  // rows of Qᵀ a streamed chunk holds
+constexpr size_t kSmemDefault = 48 * 1024;
 
 enum Kind { kBf16 = 0, kInt8 = 1 };
 
@@ -151,7 +163,70 @@ struct Args {
   int n, d, B, tau, ldo;
   float m_plus_1;
   float c0, c1, c2;        // K4: 1+ε, 1−ε; K5: Δ, pad, ½+pad
+  const int* ids;          // the row map (nullptr: identity), K7
+  int block_n;             // rows a map entry names
+  int rows;                // compact rows to compute (n without a map)
+  int qrows;               // rows of Qᵀ in shared memory at once
 };
+
+// The global row of compact row r < rows, or n for a row past n
+template <bool MASKED>
+__device__ __forceinline__ int global_row(const Args& a, int r) {
+  if constexpr (!MASKED) return r;
+  const int g = a.ids[r / a.block_n] * a.block_n + r % a.block_n;
+  return g < a.n ? g : a.n;
+}
+
+// Rows [c0, c0 + len) of Qᵀ into shared memory: qs[k - c0][b]
+template <int NB>
+__device__ __forceinline__ void stage_q(float* qs, const Args& a, int c0,
+                                        int len) {
+  constexpr int kStride = q_stride<NB>();
+  for (int i = threadIdx.x; i < len * NB; i += blockDim.x) {
+    const int k = i / NB, b = i % NB;
+    qs[k * kStride + b] = b < a.B ? a.Q[(size_t)b * a.d + c0 + k] : 0.f;
+  }
+}
+
+// acc[b] += u_k·q_bk over this lane's k in [c0, c1), one fmaf each in
+// ascending k; qs holds rows c0.. of Qᵀ
+template <int NB, typename RowT>
+__device__ __forceinline__ void dot_chunk(float (&acc)[NB], const RowT* u,
+                                          const float* qs, int c0, int c1,
+                                          int lane) {
+  constexpr int kStride = q_stride<NB>();
+  for (int k0 = c0; k0 < c1; k0 += 32 * kUChunk) {
+    float uv[kUChunk];
+#pragma unroll
+    for (int i = 0; i < kUChunk; ++i) {
+      const int k = k0 + lane + 32 * i;
+      uv[i] = k < c1 ? to_f32(u[k]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kUChunk; ++i) {
+      const int k = k0 + lane + 32 * i;
+      if (k < c1) {
+        const float* qk = qs + (k - c0) * kStride;
+        float qv[NB];
+        if constexpr (NB >= 4) {
+#pragma unroll
+          for (int c = 0; c < NB / 4; ++c) {
+            const float4 x = reinterpret_cast<const float4*>(qk)[c];
+            qv[4 * c] = x.x;
+            qv[4 * c + 1] = x.y;
+            qv[4 * c + 2] = x.z;
+            qv[4 * c + 3] = x.w;
+          }
+        } else {
+#pragma unroll
+          for (int b = 0; b < NB; ++b) qv[b] = qk[b];
+        }
+#pragma unroll
+        for (int b = 0; b < NB; ++b) acc[b] = fmaf(uv[i], qv[b], acc[b]);
+      }
+    }
+  }
+}
 
 // query._est_from_grid for one (user, query), in its operation order.
 // frac = clip((s − thr_up)/span, 0, 1) divides only inside (0, span):
@@ -237,25 +312,29 @@ __device__ __forceinline__ void finish_int8(const Args& a, int user, size_t o,
                            rup, a.m_plus_1);
 }
 
-// K4 at several queries holds the most state per lane (sums, a staged
-// chunk, the batch's results); asking for four resident blocks an SM
-// caps it at 64 registers, and it runs faster so despite a few spills
-template <int NB, int KIND, typename RowT>
-__global__ void __launch_bounds__(kWarps * 32,
-                                  KIND == kBf16 && NB > 1 ? 4 : 1)
+// At several queries a lane holds much state (sums, K4's staged chunk,
+// the batch's results); asking for four resident blocks an SM caps it at
+// 64 registers. K4 runs faster so despite a few spills; K5 at 16
+// queries, uncapped, took just over 64 and ran a third slower on the
+// three blocks an SM that left room for.
+//
+// STREAM is a.qrows < d and MASKED is a.ids != nullptr, as in K1: only
+// then does the loop hold block barriers, or the row map's dependent
+// loads and branches.
+template <int NB, int KIND, typename RowT, bool STREAM, bool MASKED>
+__global__ void __launch_bounds__(kWarps * 32, NB > 1 ? 4 : 1)
 quant_bound_ranks_kernel(const Args a) {
   constexpr int kStride = q_stride<NB>();
   constexpr int kShift = 5 - log2_nb<NB>();  // lanes per query: 1 << kShift
   constexpr int kG = 32 / NB;                // users per batch of a warp
   constexpr bool kStage = KIND == kBf16 && NB > 1;
-  extern __shared__ __align__(16) float qs[];  // (d, kStride): qs[k][b]
+  extern __shared__ __align__(16) float qs[];  // (qrows, stride): qs[k][b]
   const int d = a.d, tau = a.tau;
-  float* ts = qs + d * kStride + (threadIdx.x >> 5) * kTile;  // warp tile
-  for (int i = threadIdx.x; i < d * NB; i += blockDim.x) {
-    const int k = i / NB, b = i % NB;
-    qs[k * kStride + b] = b < a.B ? a.Q[(size_t)b * d + k] : 0.f;
+  float* ts = qs + a.qrows * kStride + (threadIdx.x >> 5) * kTile;
+  if constexpr (!STREAM) {
+    stage_q<NB>(qs, a, 0, d);
+    __syncthreads();
   }
-  __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int my_b = lane >> kShift;         // query of this lane's sums
@@ -266,10 +345,17 @@ quant_bound_ranks_kernel(const Args a) {
   const float fin_qn = fin_b < a.B ? a.qnorm1[fin_b] : 0.f;
   const RowT* U = static_cast<const RowT*>(a.U);
 
-  for (int base = (blockIdx.x * kWarps + warp) * kG; base < a.n;
-       base += gridDim.x * kWarps * kG) {
+  // a warp takes kG rows at a time. Streamed, every warp of a block runs
+  // the same iterations, so that the block can synchronise on each chunk
+  // of Qᵀ, and a warp without a row only stages
+  for (int b0 = (blockIdx.x * kWarps + (STREAM ? 0 : warp)) * kG;
+       b0 < a.rows; b0 += gridDim.x * kWarps * kG) {
+    const int base = STREAM ? b0 + warp * kG : b0;
     // the finishing user's per-user values, loaded before any score
-    const int fuser = min(base + fin_g, a.n - 1);
+    const int fuser =
+        MASKED ? min(global_row<MASKED>(a, min(base + fin_g, a.rows - 1)),
+                     a.n - 1)
+               : min(base + fin_g, a.n - 1);
     const float uslack = a.uslack[fuser];
     float uscale = 1.f, sc_t = 1.f, off_t = 0.f, dev = 0.f, sc_b = 1.f,
           off_b = 0.f, e_lo = 0.f, e_hi = 0.f;
@@ -290,8 +376,12 @@ quant_bound_ranks_kernel(const Args a) {
     int lo_fin = 0, hi_fin = 0;
 
     for (int g = 0; g < kG; ++g) {
-      const int user = base + g;
-      if (user >= a.n) break;  // the same in every lane
+      const int r = base + g;
+      if (!STREAM && r >= a.rows) break;  // the same in every lane
+      // the same in every lane; without a map every row is a live user
+      const int user = r < a.rows ? global_row<MASKED>(a, r) : a.n;
+      const bool live = MASKED ? user < a.n : r < a.rows;
+      if (!STREAM && !live) continue;
       const RowT* u = U + (size_t)user * d;
       const __nv_bfloat16* t = nullptr;
       float tv[kStage ? kTChunk : 1];
@@ -299,45 +389,28 @@ quant_bound_ranks_kernel(const Args a) {
         // the first chunk does not depend on the scores: its loads go
         // out now and overlap those of the user row
         t = a.thr + (size_t)user * tau;
+        if (live) {
 #pragma unroll
-        for (int i = 0; i < kTChunk; ++i) {
-          const int j = lane + 32 * i;
-          tv[i] = j < tau ? __bfloat162float(t[j]) : 0.f;
+          for (int i = 0; i < kTChunk; ++i) {
+            const int j = lane + 32 * i;
+            tv[i] = j < tau ? __bfloat162float(t[j]) : 0.f;
+          }
         }
       }
       float acc[NB];
 #pragma unroll
       for (int b = 0; b < NB; ++b) acc[b] = 0.f;
-      for (int k0 = 0; k0 < d; k0 += 32 * kUChunk) {
-        float uv[kUChunk];
-#pragma unroll
-        for (int i = 0; i < kUChunk; ++i) {
-          const int k = k0 + lane + 32 * i;
-          uv[i] = k < d ? to_f32(u[k]) : 0.f;
+      if constexpr (STREAM) {
+        for (int c0 = 0; c0 < d; c0 += a.qrows) {
+          const int c1 = min(d, c0 + a.qrows);
+          __syncthreads();  // every warp is done with the previous chunk
+          stage_q<NB>(qs, a, c0, c1 - c0);
+          __syncthreads();
+          if (live) dot_chunk<NB>(acc, u, qs, c0, c1, lane);
         }
-#pragma unroll
-        for (int i = 0; i < kUChunk; ++i) {
-          const int k = k0 + lane + 32 * i;
-          if (k < d) {
-            const float* qk = qs + k * kStride;
-            float qv[NB];
-            if constexpr (NB >= 4) {
-#pragma unroll
-              for (int c = 0; c < NB / 4; ++c) {
-                const float4 x = reinterpret_cast<const float4*>(qk)[c];
-                qv[4 * c] = x.x;
-                qv[4 * c + 1] = x.y;
-                qv[4 * c + 2] = x.z;
-                qv[4 * c + 3] = x.w;
-              }
-            } else {
-#pragma unroll
-              for (int b = 0; b < NB; ++b) qv[b] = qk[b];
-            }
-#pragma unroll
-            for (int b = 0; b < NB; ++b) acc[b] = fmaf(uv[i], qv[b], acc[b]);
-          }
-        }
+        if (!live) continue;
+      } else {
+        dot_chunk<NB>(acc, u, qs, 0, d, lane);
       }
       halve<NB, NB, 16>(acc, lane);
       const float s = acc[0];  // u·q_{my_b} over the stored row
@@ -400,10 +473,13 @@ quant_bound_ranks_kernel(const Args a) {
       }
     }
 
-    const int user = base + fin_g;
-    if (user < a.n && fin_b < a.B) {
-      const size_t o = (size_t)user * a.ldo + fin_b;
-      if constexpr (KIND == kBf16) {
+    const int r = base + fin_g;
+    if (r < a.rows && fin_b < a.B) {
+      const int user = global_row<MASKED>(a, r);
+      const size_t o = (size_t)r * a.ldo + fin_b;
+      if (MASKED && user == a.n) {
+        a.r_lo[o] = a.r_up[o] = a.est[o] = a.m_plus_1 + 1.f;
+      } else if constexpr (KIND == kBf16) {
         finish_bf16(a, user, o, s_fin, lo_fin, hi_fin, ft, e_lo, e_hi);
       } else {
         finish_int8(a, user, o, s_fin * uscale, uslack * fin_qn, sc_t,
@@ -418,14 +494,25 @@ int launch(const Args& a, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int want = (a.n + kWarps - 1) / kWarps;
+  const int want = (a.rows + kWarps - 1) / kWarps;
   const int blocks = want < sms * 8 ? want : sms * 8;
   const bool stage = KIND == kBf16 && NB > 1;
-  const size_t smem =
-      ((size_t)a.d * q_stride<NB>() + (stage ? kWarps * kTile : 0)) *
-      sizeof(float);
-  quant_bound_ranks_kernel<NB, KIND, RowT>
-      <<<blocks, kWarps * 32, smem, stream>>>(a);
+  const size_t tiles = stage ? (size_t)kWarps * kTile : 0;
+  Args b = a;
+  b.qrows = ((size_t)a.d * q_stride<NB>() + tiles) * sizeof(float) <=
+                    kSmemDefault
+                ? a.d
+                : kQChunk;
+  const size_t smem = ((size_t)b.qrows * q_stride<NB>() + tiles) *
+                      sizeof(float);
+  const bool streamed = b.qrows < a.d;
+  auto kernel = quant_bound_ranks_kernel<NB, KIND, RowT, false, false>;
+  if (streamed)
+    kernel = a.ids ? quant_bound_ranks_kernel<NB, KIND, RowT, true, true>
+                   : quant_bound_ranks_kernel<NB, KIND, RowT, true, false>;
+  else if (a.ids)
+    kernel = quant_bound_ranks_kernel<NB, KIND, RowT, false, true>;
+  kernel<<<blocks, kWarps * 32, smem, stream>>>(b);
   return (int)cudaGetLastError();
 }
 
@@ -439,23 +526,20 @@ int dispatch(const Args& a, cudaStream_t st) {
 }
 
 int check(const Args& a) {
-  if (a.n <= 0 || a.B <= 0) return -1;
-  if (a.B > kMaxB || a.tau < 2) return (int)cudaErrorInvalidValue;
+  if (a.rows <= 0 || a.B <= 0) return -1;
+  if (a.B > kMaxB || a.tau < 2 || a.n <= 0 || a.d <= 0 ||
+      (a.ids && a.block_n <= 0))
+    return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-}  // namespace
-
-// Outputs are user-major with row stride ldo: out[user * ldo + b]. rows_f32
-// != 0 takes f32 user rows (raw users against a bf16 table: the caller
-// passes zero slack).
-extern "C" int k4_bound_ranks_bf16(const void* U, int rows_f32,
-                                   const float* uslack, const float* Q,
-                                   const float* qnorm1, const void* thr,
-                                   const void* tab, float* r_lo, float* r_up,
-                                   float* est, int n, int d, int B, int tau,
-                                   int ldo, float m_plus_1, float widen_up,
-                                   float widen_lo, void* stream) {
+// K4's arguments; ids == nullptr is the identity map over n rows
+int run_bf16(const void* U, int rows_f32, const float* uslack,
+             const float* Q, const float* qnorm1, const void* thr,
+             const void* tab, const int* ids, float* r_lo, float* r_up,
+             float* est, int n, int d, int B, int tau, int ldo,
+             float m_plus_1, float widen_up, float widen_lo, int rows,
+             int block_n, void* stream) {
   Args a{};
   a.U = U;
   a.uslack = uslack;
@@ -474,6 +558,9 @@ extern "C" int k4_bound_ranks_bf16(const void* U, int rows_f32,
   a.m_plus_1 = m_plus_1;
   a.c0 = widen_up;
   a.c1 = widen_lo;
+  a.ids = ids;
+  a.block_n = block_n;
+  a.rows = rows;
   const int bad = check(a);
   if (bad) return bad < 0 ? 0 : bad;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -481,15 +568,15 @@ extern "C" int k4_bound_ranks_bf16(const void* U, int rows_f32,
                   : dispatch<kBf16, __nv_bfloat16>(a, st);
 }
 
-// rows_f32 != 0 takes f32 user rows (raw users against an int8 table: the
-// caller passes unit scale and zero slack).
-extern "C" int k5_bound_ranks_int8(
-    const void* U, int rows_f32, const float* uscale, const float* uslack,
-    const float* Q, const float* qnorm1, const float* thr_sc,
-    const float* thr_off, const float* thr_dev, const void* tab,
-    const float* tab_sc, const float* tab_off, float* r_lo, float* r_up,
-    float* est, int n, int d, int B, int tau, int ldo, float m_plus_1,
-    float delta, float dev_pad, float widen_c, void* stream) {
+// K5's arguments; ids == nullptr is the identity map over n rows
+int run_int8(const void* U, int rows_f32, const float* uscale,
+             const float* uslack, const float* Q, const float* qnorm1,
+             const float* thr_sc, const float* thr_off, const float* thr_dev,
+             const void* tab, const float* tab_sc, const float* tab_off,
+             const int* ids, float* r_lo, float* r_up, float* est, int n,
+             int d, int B, int tau, int ldo, float m_plus_1, float delta,
+             float dev_pad, float widen_c, int rows, int block_n,
+             void* stream) {
   Args a{};
   a.U = U;
   a.uscale = uscale;
@@ -514,11 +601,74 @@ extern "C" int k5_bound_ranks_int8(
   a.c0 = delta;
   a.c1 = dev_pad;
   a.c2 = widen_c;
+  a.ids = ids;
+  a.block_n = block_n;
+  a.rows = rows;
   const int bad = check(a);
   if (bad) return bad < 0 ? 0 : bad;
   const cudaStream_t st = (cudaStream_t)stream;
   return rows_f32 ? dispatch<kInt8, float>(a, st)
                   : dispatch<kInt8, int8_t>(a, st);
+}
+
+}  // namespace
+
+// Outputs are user-major with row stride ldo: out[user * ldo + b]. rows_f32
+// != 0 takes f32 user rows (raw users against a bf16 table: the caller
+// passes zero slack).
+extern "C" int k4_bound_ranks_bf16(const void* U, int rows_f32,
+                                   const float* uslack, const float* Q,
+                                   const float* qnorm1, const void* thr,
+                                   const void* tab, float* r_lo, float* r_up,
+                                   float* est, int n, int d, int B, int tau,
+                                   int ldo, float m_plus_1, float widen_up,
+                                   float widen_lo, void* stream) {
+  return run_bf16(U, rows_f32, uslack, Q, qnorm1, thr, tab, nullptr, r_lo,
+                  r_up, est, n, d, B, tau, ldo, m_plus_1, widen_up, widen_lo,
+                  n, 1, stream);
+}
+
+// rows_f32 != 0 takes f32 user rows (raw users against an int8 table: the
+// caller passes unit scale and zero slack).
+extern "C" int k5_bound_ranks_int8(
+    const void* U, int rows_f32, const float* uscale, const float* uslack,
+    const float* Q, const float* qnorm1, const float* thr_sc,
+    const float* thr_off, const float* thr_dev, const void* tab,
+    const float* tab_sc, const float* tab_off, float* r_lo, float* r_up,
+    float* est, int n, int d, int B, int tau, int ldo, float m_plus_1,
+    float delta, float dev_pad, float widen_c, void* stream) {
+  return run_int8(U, rows_f32, uscale, uslack, Q, qnorm1, thr_sc, thr_off,
+                  thr_dev, tab, tab_sc, tab_off, nullptr, r_lo, r_up, est, n,
+                  d, B, tau, ldo, m_plus_1, delta, dev_pad, widen_c, n, 1,
+                  stream);
+}
+
+// K7 at bf16: K4 over the nk tiles of block_n rows named by ids (nk,);
+// outputs are compact, (nk·block_n) rows with row stride ldo.
+extern "C" int k7_bound_ranks_bf16_masked(
+    const void* U, int rows_f32, const float* uslack, const float* Q,
+    const float* qnorm1, const void* thr, const void* tab, const int* ids,
+    float* r_lo, float* r_up, float* est, int n, int d, int B, int tau,
+    int ldo, float m_plus_1, float widen_up, float widen_lo, int nk,
+    int block_n, void* stream) {
+  return run_bf16(U, rows_f32, uslack, Q, qnorm1, thr, tab, ids, r_lo, r_up,
+                  est, n, d, B, tau, ldo, m_plus_1, widen_up, widen_lo,
+                  nk * block_n, block_n, stream);
+}
+
+// K7 at int8: K5 over the nk tiles of block_n rows named by ids (nk,).
+extern "C" int k7_bound_ranks_int8_masked(
+    const void* U, int rows_f32, const float* uscale, const float* uslack,
+    const float* Q, const float* qnorm1, const float* thr_sc,
+    const float* thr_off, const float* thr_dev, const void* tab,
+    const float* tab_sc, const float* tab_off, const int* ids, float* r_lo,
+    float* r_up, float* est, int n, int d, int B, int tau, int ldo,
+    float m_plus_1, float delta, float dev_pad, float widen_c, int nk,
+    int block_n, void* stream) {
+  return run_int8(U, rows_f32, uscale, uslack, Q, qnorm1, thr_sc, thr_off,
+                  thr_dev, tab, tab_sc, tab_off, ids, r_lo, r_up, est, n, d,
+                  B, tau, ldo, m_plus_1, delta, dev_pad, widen_c,
+                  nk * block_n, block_n, stream);
 }
 
 extern "C" const char* repro_error_string(int code) {

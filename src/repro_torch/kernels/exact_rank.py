@@ -13,17 +13,6 @@ import torch
 
 from repro_torch.kernels import _build
 
-_SMEM_OPTIN = 227 * 1024
-
-
-def check_shape(d: int) -> None:
-    # a 64-user tile over the padded depth, one 16 x 64 item tile, u·q
-    dp = (d + 15) // 16 * 16
-    if 4 * (dp * 68 + 16 * 68 + 64) > _SMEM_OPTIN:
-        raise ValueError(f"K3 keeps a 64-user tile in shared memory: d={d} "
-                         "too large")
-
-
 def exact_ranks_kernel_call(users: torch.Tensor, items: torch.Tensor,
                             q: torch.Tensor) -> torch.Tensor:
     """One K3 launch → (n,) int32 ranks 1 + #{p : u·p > u·q}. Inputs

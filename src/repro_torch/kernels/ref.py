@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the kernels on the main path.
 
 The CPU path of every wrapper in `ops.py` (`ref_bound_ranks`,
-`ref_bound_ranks_stored`, `estimate_table_rows`, `ref_exact_counts`),
+`ref_bound_ranks_stored`, their masked twins `ref_bound_ranks_masked`
+and `ref_bound_ranks_stored_masked`, `estimate_table_rows`,
+`ref_exact_counts`),
 and what the tests and the chip smoke run hold each CUDA kernel against.
 `ref_table_rows` computes
 Eq. (1) a second way, by direct comparison, as an independent check of
@@ -14,8 +16,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.pruning import row_indices
 from repro_torch.core.query import _dequant_matmul, lookup_bounds_batch
-from repro_torch.core.types import RankTable
+from repro_torch.core.types import RankTable, StoredUsers
 
 
 def ref_bound_ranks(users: torch.Tensor, qs: torch.Tensor,
@@ -42,6 +45,49 @@ def ref_bound_ranks_stored(rows: torch.Tensor,
     (r_lo, r_up, est), each (n, B) f32, user-major."""
     scores = _dequant_matmul(rows, uscale, qs)
     return lookup_bounds_batch(rt, scores, uslack * qnorm1[None, :])
+
+
+def _masked(fn, block_ids: torch.Tensor, block_n: int, n: int, m: int
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`fn(g)` on the rows g that tiles `block_ids` of `block_n` rows
+    name (clipped to n - 1), then rows past n set to m + 2 in all three
+    outputs, as K6/K7 write them. Returns (nk·block_n, B) each."""
+    ridx = row_indices(block_ids, block_n)
+    out = fn(torch.clamp(ridx, max=n - 1))
+    past = (ridx >= n)[:, None]
+    fill = torch.tensor(float(m + 2), dtype=torch.float32,
+                        device=ridx.device)
+    return tuple(torch.where(past, fill, x) for x in out)
+
+
+def ref_bound_ranks_masked(users: torch.Tensor, qs: torch.Tensor,
+                           thresholds: torch.Tensor, table: torch.Tensor,
+                           m: int, block_ids: torch.Tensor, block_n: int
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """K6's function: `ref_bound_ranks` on the rows of the tiles named by
+    `block_ids`, compacted in list order; rows past n read m + 2."""
+    def gathered(g):
+        sub = RankTable(thresholds, table, m).take_rows(g)
+        return ref_bound_ranks(users[g], qs, sub.thresholds, sub.table, m)
+    return _masked(gathered, block_ids, block_n, users.shape[0], m)
+
+
+def ref_bound_ranks_stored_masked(rows: torch.Tensor,
+                                  uscale: Optional[torch.Tensor],
+                                  uslack: torch.Tensor, qs: torch.Tensor,
+                                  qnorm1: torch.Tensor, rt: RankTable,
+                                  block_ids: torch.Tensor, block_n: int
+                                  ) -> tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """K7's function: `ref_bound_ranks_stored` on the gathered rows of
+    the tiles named by `block_ids`, their per-row vectors with them;
+    rows past n read m + 2."""
+    def gathered(g):
+        su = StoredUsers(rows, uscale, uslack).take_rows(g)
+        return ref_bound_ranks_stored(su.rows, su.scale, su.row_slack, qs,
+                                      qnorm1, rt.take_rows(g))
+    return _masked(gathered, block_ids, block_n, rows.shape[0], rt.m)
 
 
 def estimate_table_rows(scores: torch.Tensor, weights: torch.Tensor,

@@ -13,22 +13,6 @@ import torch
 
 from repro_torch.kernels import _build
 
-_SMEM_OPTIN = 227 * 1024
-
-
-def smem_bytes(d: int, S: int) -> int:
-    """Dynamic shared memory of one block: 8 user rows and 32 sample rows
-    at an odd row stride, 8 users' S scores, the S weights."""
-    stride = d + 1 if d % 2 == 0 else d
-    return 4 * ((8 + 32) * stride + 8 * S + S)
-
-
-def check_shape(d: int, S: int) -> None:
-    if smem_bytes(d, S) > _SMEM_OPTIN:
-        raise ValueError(f"K2 keeps each user's S={S} scores and a d={d} "
-                         "sample chunk in shared memory: too large")
-
-
 def table_build_kernel_call(users: torch.Tensor, samples: torch.Tensor,
                             weights: torch.Tensor, thresholds: torch.Tensor
                             ) -> torch.Tensor:

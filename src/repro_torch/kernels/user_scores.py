@@ -1,4 +1,5 @@
-"""K1, K4 and K5 launchers: fused U·Qᵀ + rank-table lookup (§4.3 step 1).
+"""K1, K4, K5, K6 and K7 launchers: fused U·Qᵀ + rank-table lookup (§4.3
+step 1).
 
 K1 replaces the TPU kernel `repro/kernels/user_scores.py`
 (`bound_ranks_batched_kernel_call`, and its B = 1 twin
@@ -9,12 +10,23 @@ CUDA source is `csrc/user_scores.cu` and its public wrapper
 `csrc/user_scores_quant.cu` and their public wrapper
 `ops.bound_ranks_batched_stored`.
 
+K6 and K7 replace the masked-grid kernels of block pruning
+(`bound_ranks_batched_masked_kernel_call` and
+`bound_ranks_batched_quant_masked_kernel_call`): the same kernels behind
+a row map `block_ids`, one id per `block_n` rows, with compacted outputs
+(`ops.bound_ranks_batched_pruned`, `ops.bound_ranks_batched_pruned_stored`).
+
 Bound on the card: memory — U once, and per user and query the few
 threshold and table sectors that a search touches (K5 reads no
 thresholds). K1 and K4 at B > 1 read each thresholds row whole, once
-for all the queries of a launch.
+for all the queries of a launch. K6/K7: the same over the kept rows.
+
+Any d: Qᵀ stays in shared memory whole where it fits and streams through
+it in 256-row chunks where it does not, with the same scores.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -23,43 +35,48 @@ from repro_torch.core.types import EPS_BF16
 from repro_torch.kernels import _build
 
 MAX_B = 16                       # queries per launch (kMaxB in the source)
-_Q_STRIDE = MAX_B + 4            # floats per row of Qᵀ in shared memory
-_T_TILES = 8 * 512               # a 512-float thresholds tile per warp
-_SMEM = 48 * 1024                # both live in default shared memory
-
-
-def check_shape(d: int) -> None:
-    if (d * _Q_STRIDE + _T_TILES) * 4 > _SMEM:
-        raise ValueError(f"K1 keeps Qᵀ in shared memory: d={d} exceeds "
-                         f"{(_SMEM // 4 - _T_TILES) // _Q_STRIDE}")
 
 
 def bound_ranks_batched_kernel_call(users: torch.Tensor, qs: torch.Tensor,
                                     thresholds: torch.Tensor,
                                     table: torch.Tensor, r_lo: torch.Tensor,
                                     r_up: torch.Tensor, est: torch.Tensor, *,
-                                    m: int) -> None:
-    """One K1 launch for ≤ 16 queries qs (nb, d). Writes user-major
-    (n, nb) outputs, which may be column slices of wider arrays (row
-    stride r_lo.stride(0)). Inputs are checked by the caller."""
+                                    m: int,
+                                    block_ids: Optional[torch.Tensor] = None,
+                                    block_n: int = 0) -> None:
+    """One K1 launch for ≤ 16 queries qs (nb, d), or with `block_ids`
+    (nk,) int32 one K6 launch over the nk tiles of `block_n` rows they
+    name. Writes row-major (rows, nb) outputs, rows = n or nk·block_n,
+    which may be column slices of wider arrays (row stride
+    r_lo.stride(0)). Inputs are checked by the caller."""
     n, d = users.shape
-    _build.call("user_scores", "k1_bound_ranks", users.data_ptr(),
+    stream = torch.cuda.current_stream(users.device).cuda_stream
+    common = (r_lo.data_ptr(), r_up.data_ptr(), est.data_ptr(), n, d,
+              qs.shape[0], thresholds.shape[1], r_lo.stride(0),
+              float(m + 1))
+    if block_ids is None:
+        _build.call("user_scores", "k1_bound_ranks", users.data_ptr(),
+                    qs.data_ptr(), thresholds.data_ptr(), table.data_ptr(),
+                    *common, stream)
+        return
+    _build.call("user_scores", "k6_bound_ranks_masked", users.data_ptr(),
                 qs.data_ptr(), thresholds.data_ptr(), table.data_ptr(),
-                r_lo.data_ptr(), r_up.data_ptr(), est.data_ptr(), n, d,
-                qs.shape[0], thresholds.shape[1], r_lo.stride(0),
-                float(m + 1), torch.cuda.current_stream(users.device)
-                .cuda_stream)
+                block_ids.data_ptr(), *common, block_ids.shape[0], block_n,
+                stream)
 
 
 def bound_ranks_quant_kernel_call(kind: str, rows: torch.Tensor,
                                   uscale, uslack: torch.Tensor,
                                   qs: torch.Tensor, qnorm1: torch.Tensor,
                                   rt, r_lo: torch.Tensor, r_up: torch.Tensor,
-                                  est: torch.Tensor) -> None:
+                                  est: torch.Tensor,
+                                  block_ids: Optional[torch.Tensor] = None,
+                                  block_n: int = 0) -> None:
     """One K4 (kind "bf16") or K5 (kind "int8") launch for ≤ 16 queries
-    qs (nb, d) with their ‖q‖₁ `qnorm1` (nb,). rows are the stored dtype
-    or f32; uslack (n, 1) f32, and for K5 uscale (n, 1) f32. Writes
-    user-major (n, nb) outputs, which may be column slices of wider
+    qs (nb, d) with their ‖q‖₁ `qnorm1` (nb,), or with `block_ids` one
+    K7 launch over the tiles they name. rows are the stored dtype or
+    f32; uslack (n, 1) f32, and for K5 uscale (n, 1) f32. Writes
+    row-major (rows, nb) outputs, which may be column slices of wider
     arrays. Inputs are checked by the caller."""
     n, d = rows.shape
     tau = rt.tau
@@ -67,18 +84,23 @@ def bound_ranks_quant_kernel_call(kind: str, rows: torch.Tensor,
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     common = (r_lo.data_ptr(), r_up.data_ptr(), est.data_ptr(), n, d,
               qs.shape[0], tau, r_lo.stride(0), float(rt.m + 1))
+    masked = block_ids is not None
+    ids = (block_ids.data_ptr(),) if masked else ()
+    tail = (block_ids.shape[0], block_n, stream) if masked else (stream,)
     if kind == "bf16":
-        _build.call("user_scores_quant", "k4_bound_ranks_bf16",
-                    rows.data_ptr(), rows_f32, uslack.data_ptr(),
-                    qs.data_ptr(), qnorm1.data_ptr(),
-                    rt.thresholds.data_ptr(), rt.table.data_ptr(), *common,
-                    1.0 + EPS_BF16, 1.0 - EPS_BF16, stream)
+        symbol = "k7_bound_ranks_bf16_masked" if masked \
+            else "k4_bound_ranks_bf16"
+        _build.call("user_scores_quant", symbol, rows.data_ptr(), rows_f32,
+                    uslack.data_ptr(), qs.data_ptr(), qnorm1.data_ptr(),
+                    rt.thresholds.data_ptr(), rt.table.data_ptr(), *ids,
+                    *common, 1.0 + EPS_BF16, 1.0 - EPS_BF16, *tail)
         return
     delta, dev_pad, widen_c = int8_constants(tau)
-    _build.call("user_scores_quant", "k5_bound_ranks_int8", rows.data_ptr(),
-                rows_f32, uscale.data_ptr(), uslack.data_ptr(),
-                qs.data_ptr(), qnorm1.data_ptr(), rt.thr_scale.data_ptr(),
+    symbol = "k7_bound_ranks_int8_masked" if masked else "k5_bound_ranks_int8"
+    _build.call("user_scores_quant", symbol, rows.data_ptr(), rows_f32,
+                uscale.data_ptr(), uslack.data_ptr(), qs.data_ptr(),
+                qnorm1.data_ptr(), rt.thr_scale.data_ptr(),
                 rt.thr_off.data_ptr(), rt.thr_dev.data_ptr(),
                 rt.table.data_ptr(), rt.tab_scale.data_ptr(),
-                rt.tab_off.data_ptr(), *common, delta, dev_pad, widen_c,
-                stream)
+                rt.tab_off.data_ptr(), *ids, *common, delta, dev_pad,
+                widen_c, *tail)

@@ -115,7 +115,7 @@ def test_engine_rejects_bad_queries_and_backends(flow):
     with pytest.raises(ValueError, match="unknown backend wrapper"):
         ReverseKRanksEngine(st.users, st.rank_table, RankTableConfig(),
                             backend="cached:fused")
-    assert ReverseKRanksEngine.backends() == ["dense", "fused"]
+    assert ReverseKRanksEngine.backends() == ["dense", "fused", "pruned"]
     assert (eng.n, eng.d) == (N, D)
 
 

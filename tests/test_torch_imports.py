@@ -46,6 +46,15 @@ for spec in ("bf16", "int8"):
         device="cpu")
     assert eng.rank_table.spec_kind == spec
     assert eng.query(items[3], 5, 2.0).indices.shape == (5,)
+from repro_torch.core.backends import PrunedBackend
+from repro_torch.data.pipeline import mid_mixture
+users, items, _ = mid_mixture(0, 1024, 40, 8, device="cpu")
+for inner in ("dense", "fused"):
+    eng = ReverseKRanksEngine.build(users, items, RankTableConfig(
+        tau=8, omega=2, s=4), 0, backend=PrunedBackend(inner, block_size=32),
+        device="cpu", cluster_reorder=True)
+    assert eng.user_remap is not None
+    assert eng.query_batch(items[:3], 5, 2.0).indices.shape == (3, 5)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
 assert not bad, bad
