@@ -6,7 +6,10 @@
 Phases, each fatal on failure (exit code 1, no result line):
 
   1. device line: the card's name and power limit, torch and CUDA;
-  2. build K1-K5 from `src/repro_torch/kernels/csrc/*.cu` with nvcc;
+  2. build K1-K7 from `src/repro_torch/kernels/csrc/*.cu` with nvcc, and
+     print the launch K4/K5/K7 make at the main path's sizes (rows a
+     tile of their shared-memory ring, stages, shared memory, blocks an
+     SM) with each instance's registers and local memory;
   3. each kernel against its plain PyTorch version on the card at ragged
      shapes (K4/K5 on integer inputs, where they must agree exactly, with
      stored and with raw f32 users; and on randn inputs, where query 0
@@ -31,7 +34,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      (query, user) bound in the f32 engine's K1 bounds; the §5 metrics
      against the exact ranks of phase 4; memory_bytes; the fused
      query(q) equal to row 0 of query_batch. Its own launch counts,
-     zeroed before and read after; K4 and K5 must have run;
+     zeroed before and read after; K4 and K5 must have run; then the
+     SHA-256 digest of K4/K5's and of K7's (r_lo, r_up, est) at bf16 and
+     int8, stored and raw f32 rows, B = 16 and 1 (K7 over a fixed tile
+     list with duplicates and the tail block), for comparison with
+     another tree's digests on the same inputs (`quant_digests`), and
+     a torch.profiler breakdown of each quantized query_batch;
   4c. block-pruned queries: (i) the same data built with
      cluster_reorder=True on pruned:fused at the default cap, whose
      selection must be bitwise the full-scan fused engine's on the same
@@ -328,6 +336,106 @@ def quant_launches(torch, ops, users, qs, qn, rt):
     return out[0], out[1], out[2]
 
 
+def netflix_data(torch, rt_mod, synthetic_embeddings, RankTableConfig, dev):
+    """The main path's inputs: synthetic embeddings at Netflix size from
+    seed 0, the build's sample positions and weights (seed 1), and B item
+    queries (seed 2) led by QUERY_ITEM → (users, items, cfg, pos, w, qs)."""
+    users, items = synthetic_embeddings(0, N, M, D, device=dev)
+    cfg = RankTableConfig(tau=TAU, omega=OMEGA, s=S_PER)
+    gb = torch.Generator(device=dev)
+    gb.manual_seed(1)
+    pos, w = rt_mod.stratified_sample_indices(M, cfg, gb)
+    gq = torch.Generator(device=dev)
+    gq.manual_seed(2)
+    qids = torch.randperm(M, generator=gq, device=dev)[:B]
+    qids[0] = QUERY_ITEM
+    return users, items, cfg, pos, w, items[qids].contiguous()
+
+
+def quant_digests(torch, ops, query_mod, tables, users, qs):
+    """SHA-256 of the (r_lo, r_up, est) bytes of one K4/K5 launch and one
+    K7 launch for each spec (tables: {spec: (stored users, rank table)}),
+    stored and raw f32 rows, and B = 16 and 1; K7 over half the tiles of
+    256 rows in a seeded order, then the tail tile and a duplicated
+    first tile. Returns the lines to print."""
+    import hashlib
+    n, bn = users.shape[0], 256
+    nblk = -(-n // bn)
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    ids = torch.cat([torch.randperm(nblk, generator=gen)[:nblk // 2],
+                     torch.tensor([nblk - 1, 0, 0])]).to(
+        device=qs.device, dtype=torch.int32)
+    digest = lambda t: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+    lines = []
+    for spec, (su, rt) in tables.items():
+        kid = "K4" if spec == "bf16" else "K5"
+        for what, u in (("stored", su), ("raw f32", users)):
+            parts = ops.stored_parts(u, spec)
+            for nb in (B, 1):
+                q = qs[:nb].contiguous()
+                qn = query_mod.query_l1(q)
+                out = torch.empty((3, n, nb), dtype=torch.float32,
+                                  device=qs.device)
+                quant_launch(ops, parts, q, qn, rt, out)
+                lines.append(f"  digest {kid} {spec} {what} B={nb}: "
+                             f"{digest(out)}")
+                out = torch.empty((3, ids.numel() * bn, nb),
+                                  dtype=torch.float32, device=qs.device)
+                masked_launch(ops, u, q, qn, rt, ids, bn, out)
+                lines.append(f"  digest K7 {spec} {what} B={nb}, "
+                             f"{ids.numel()} tiles: {digest(out)}")
+                del out
+    return lines
+
+
+def quant_configs(ops):
+    """One line per K4/K5/K7 instance of the main path's sizes: the
+    launch its launcher makes and the kernel's resources."""
+    lines = []
+    for spec, kid in (("bf16", "K4"), ("int8", "K5")):
+        for raw in (False, True):
+            for nb in (B, 1):
+                for masked in (False, True):
+                    c = ops.user_scores.quant_launch_config(spec, raw, nb, D,
+                                                            TAU, masked)
+                    lines.append(
+                        f"  {'K7 ' + spec if masked else kid} "
+                        f"{'raw f32' if raw else 'stored'} B={nb}: tile "
+                        f"{c['tile_rows']} rows, {c['stages']} stages"
+                        + (", thresholds staged" if c["thresholds_staged"]
+                           else "")
+                        + f", {c['smem_bytes']} B dynamic + "
+                        f"{c['static_smem_bytes']} B static shared memory, "
+                        f"{c['blocks_per_sm']} blocks an SM, "
+                        f"{c['registers']} registers and "
+                        f"{c['local_bytes']} B local a thread")
+    return lines
+
+
+def device_breakdown(torch, fn, reps: int = 10, top: int = 5) -> str:
+    """Where fn()'s device time goes, by torch.profiler over reps calls:
+    the device time a call beside its CUDA-event time (their ratio is the
+    device's busy share), then the top kernels by device time a call."""
+    from torch.profiler import ProfilerActivity, profile
+    wall = time_ms(torch, fn, reps=reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    rows = sorted(((dev_us(e) / reps / 1e3, e.key) for e in
+                   prof.key_averages()
+                   if dev_us(e) > 0 and not e.key.startswith("aten::")),
+                  reverse=True)
+    check(bool(rows), "torch.profiler recorded no device time")
+    busy = sum(ms for ms, _ in rows)
+    head = "; ".join(f"{name[:48]} {ms:.3f} ms" for ms, name in rows[:top])
+    return (f"device {busy:.3f} ms a call of {wall:.3f} ms (busy "
+            f"{100 * busy / wall:.1f}%); {head}")
+
+
 def search_bytes(row_bytes: int, nb: int) -> int:
     """Least bytes a search of one user's sorted row reads for nb
     queries: a binary search over the row's 32-byte sectors touches
@@ -546,6 +654,9 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
         for line in rec["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    ptxas: {line.strip()}")
+    print(f"K4/K5/K7 launches at d={D} tau={TAU}:")
+    for line in quant_configs(ops):
+        print(line)
 
     # 3. kernels against plain versions at ragged shapes
     print("phase: kernels vs plain, ragged shapes")
@@ -795,16 +906,8 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
     # 4. main path at Netflix scale
     print(f"phase: main path, n={N} m={M} d={D} tau={TAU} omega={OMEGA} "
           f"s={S_PER}, B={B}, k={K}, c={C}")
-    users, items = synthetic_embeddings(0, N, M, D, device=dev)
-    cfg = RankTableConfig(tau=TAU, omega=OMEGA, s=S_PER)
-    gb = torch.Generator(device=dev)
-    gb.manual_seed(1)
-    pos, w = rt_mod.stratified_sample_indices(M, cfg, gb)
-    gq = torch.Generator(device=dev)
-    gq.manual_seed(2)
-    qids = torch.randperm(M, generator=gq, device=dev)[:B]
-    qids[0] = QUERY_ITEM
-    qs = items[qids].contiguous()
+    users, items, cfg, pos, w, qs = netflix_data(
+        torch, rt_mod, synthetic_embeddings, RankTableConfig, dev)
     torch.cuda.synchronize()
 
     ops.reset_launch_counts()
@@ -1026,6 +1129,15 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
         print(f"  {spec} steady state: fused query_batch(B={B}) "
               f"{qb_st:.3f} ms, query {q1_st:.3f} ms; dense query_batch "
               f"{qb_dn:.3f} ms")
+        print(f"  {spec} profile of fused query_batch(B={B}): "
+              + device_breakdown(torch, lambda: eng_s.query_batch(qs, K, C)))
+
+    # the outputs' digests, for comparison with another tree's
+    print("phase: K4/K5/K7 output digests, Netflix size")
+    for line in quant_digests(torch, ops, query_mod, {
+            spec: (t["eng"].stored_users, t["eng"].rank_table)
+            for spec, t in tier.items()}, users, qs):
+        print(line)
 
     # 4c. block-pruned queries on the main path's data, reordered
     print(f"phase: block-pruned queries, n={N} m={M} d={D} tau={TAU}, "

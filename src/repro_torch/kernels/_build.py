@@ -47,7 +47,8 @@ SIGNATURES = {
                                        I, I, I, F, F, F, I, I, P),
         "k7_bound_ranks_int8_masked": (P, I, P, P, P, P, P, P, P, P, P, P, P,
                                        P, P, P, I, I, I, I, I, F, F, F, F, I,
-                                       I, P)},
+                                       I, P),
+        "quant_launch_config": (I, I, I, I, I, I, P)},
     "table_build": {"k2_table_build": (P, P, P, P, P, I, I, I, I, P)},
     "exact_rank": {"k3_exact_ranks": (P, P, P, P, I, I, I, P)},
 }

@@ -52,102 +52,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "step1_common.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;     // users in flight per block, one warp each
-constexpr int kMaxB = 16;     // queries per launch
-constexpr int kUChunk = 8;    // user-row floats each lane loads at once
-constexpr int kTChunk = 16;   // thresholds each lane loads at once
-constexpr int kTile = 32 * kTChunk;  // thresholds a warp searches at once
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kQChunk = 256;  // rows of Qᵀ a streamed chunk holds
 constexpr size_t kSmemDefault = 48 * 1024;
-
-// Row stride of Qᵀ in shared memory: lanes read a row each as float4s,
-// and a stride of 20 (NB = 16) or 12 (NB = 8) floats keeps the eight
-// lanes of a quarter-warp on distinct banks.
-template <int NB>
-__host__ __device__ constexpr int q_stride() { return NB >= 8 ? NB + 4 : NB; }
-
-template <int NB>
-__host__ __device__ constexpr int log2_nb() {
-  return NB >= 16 ? 4 : NB >= 8 ? 3 : NB >= 4 ? 2 : NB >= 2 ? 1 : 0;
-}
-
-// Sum v[b] over the 32 lanes for all b < NB. While a lane holds CUR > 1
-// values it keeps half of them and adds its partner's copy of that half;
-// with one value left it finishes as an xor butterfly. Lane l ends with
-// the sum of query l >> (5 - log2 NB) in v[0].
-template <int NB, int CUR, int OFF, typename T>
-__device__ __forceinline__ void halve(T (&v)[NB], int lane) {
-  if constexpr (CUR > 1) {
-    constexpr int kHalf = CUR / 2;
-    const bool upper = (lane & OFF) != 0;
-#pragma unroll
-    for (int i = 0; i < kHalf; ++i) {
-      const T send = upper ? v[i] : v[i + kHalf];
-      const T keep = upper ? v[i + kHalf] : v[i];
-      v[i] = keep + __shfl_xor_sync(kFull, send, OFF);
-    }
-    halve<NB, kHalf, OFF / 2>(v, lane);
-  } else {
-#pragma unroll
-    for (int off = OFF; off > 0; off >>= 1)
-      v[0] += __shfl_xor_sync(kFull, v[0], off);
-  }
-}
-
-// Rows [c0, c0 + len) of Qᵀ into shared memory: qs[k - c0][b]
-template <int NB>
-__device__ __forceinline__ void stage_q(float* qs, const float* Q, int B,
-                                        int d, int c0, int len) {
-  constexpr int kStride = q_stride<NB>();
-  for (int i = threadIdx.x; i < len * NB; i += blockDim.x) {
-    const int k = i / NB, b = i % NB;
-    qs[k * kStride + b] = b < B ? Q[(size_t)b * d + c0 + k] : 0.f;
-  }
-}
-
-// acc[b] += u_k·q_bk over this lane's k in [c0, c1), one fmaf each in
-// ascending k; qs holds rows c0.. of Qᵀ
-template <int NB>
-__device__ __forceinline__ void dot_chunk(float (&acc)[NB],
-                                          const float* __restrict__ u,
-                                          const float* qs, int c0, int c1,
-                                          int lane) {
-  constexpr int kStride = q_stride<NB>();
-  for (int k0 = c0; k0 < c1; k0 += 32 * kUChunk) {
-    float uv[kUChunk];
-#pragma unroll
-    for (int i = 0; i < kUChunk; ++i) {
-      const int k = k0 + lane + 32 * i;
-      uv[i] = k < c1 ? u[k] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kUChunk; ++i) {
-      const int k = k0 + lane + 32 * i;
-      if (k < c1) {
-        const float* qk = qs + (k - c0) * kStride;
-        float qv[NB];
-        if constexpr (NB >= 4) {
-#pragma unroll
-          for (int c = 0; c < NB / 4; ++c) {
-            const float4 x = reinterpret_cast<const float4*>(qk)[c];
-            qv[4 * c] = x.x;
-            qv[4 * c + 1] = x.y;
-            qv[4 * c + 2] = x.z;
-            qv[4 * c + 3] = x.w;
-          }
-        } else {
-#pragma unroll
-          for (int b = 0; b < NB; ++b) qv[b] = qk[b];
-        }
-#pragma unroll
-        for (int b = 0; b < NB; ++b) acc[b] = fmaf(uv[i], qv[b], acc[b]);
-      }
-    }
-  }
-}
 
 // rows: compact rows to compute (n without a row map); ids: the row map
 // (nullptr: identity), one id per block_n rows; qrows: rows of Qᵀ in

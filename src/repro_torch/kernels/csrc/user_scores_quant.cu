@@ -31,85 +31,106 @@
 // K5 reads the int8 row (d B), seven per-user f32 scalars and two int8
 // table codes per query, and no thresholds at all.
 //
-// Design: K1's (csrc/user_scores.cu): one warp per user, Qᵀ in shared
-// memory, the query count NB a template parameter (1, 2, 4, 8, 16), the
-// partial sums reduced by recursive halving, so a score is bitwise the
-// same at every NB. K4 searches the thresholds row twice: for one query
-// by warp-wide probes in global memory (16 segment ends, then the one
-// segment); for several by a binary search of each 512-value chunk of
-// the row, staged as f32 in the warp's shared memory, the two searches
-// of a query on two of its lanes. K5's bucketize is arithmetic.
-// The lookup that follows (divisions, exp, gathers) is most of the
-// instructions, so it runs on every lane: a warp takes its users in
-// batches of 32 / NB, computes their scores (and K4's searches) one user
-// at a time, hands each (user, query) to its own lane, and then all 32
-// lanes finish their pairs at once. A lane loads its user's scalars
-// (slack, scales, offsets, edge thresholds) before the batch's scores.
-// Ragged n, d, tau and B are masked; nothing is padded. As in K1, Qᵀ
-// streams through shared memory in chunks of 256 rows where it does not
-// fit whole, which keeps each lane's fmaf order and so every score.
+// Design: rows stream through shared memory in tiles of T consecutive
+// users. A block is eight consumer warps and one producer warp, and the
+// grid is persistent (the blocks that fit the SMs at once, each taking
+// every gridDim-th tile). The producer keeps a ring of S stages full:
+// for each tile, one elected lane issues one bulk asynchronous copy
+// (cp.async.bulk, the 1-D form of TMA) per array, completing on the
+// stage's mbarrier: the stored rows, K4's bf16 thresholds rows, and the
+// tile's slice of each per-user f32 vector (K4: slack; K5: scale, slack
+// and the five table affines). The bytes of an array that do not fill a
+// 16-byte-aligned chunk (a ragged tail, or a start off 16 bytes, as
+// under a row map) go by ordinary loads of the producer's lanes; every
+// array lands at its global address modulo 16, so its 16-byte-aligned
+// middle lands aligned. Consumers release a stage on a second mbarrier
+// once every warp has taken its rows.
+//
+// A consumer warp takes rows warp, warp + 8, ... of each tile, two at a
+// time at 8 and 16 queries. Each row's score is K1's (step1_common.cuh):
+// lane l sums k = l, l+32, ... with one fmaf chain from 0.0f, the partial
+// sums reduced by recursive halving, now from the staged row (two rows
+// share each Qᵀ value a lane loads, each with its own chain); so a score
+// is bitwise the same at every query count and from either place the row
+// is read. K4 then searches the staged thresholds row in shared
+// memory: for one query by warp-wide probes (16 segment ends, then the
+// one segment), for several by a binary search of the whole row on every
+// lane, the two searches of a query on two of its lanes. A count does not
+// depend on the order of the search, so the indices are those of any
+// search. K5's bucketize is arithmetic. The lookup that follows
+// (divisions, exp, gathers) is most of the instructions, so it runs on
+// every lane: a warp hands each (row, query) of a batch of 32 / NB rows
+// to its own lane, the lanes of a tile's rows take their values out of
+// the stage together (scalars, edge thresholds), and when the batch is
+// full every lane computes K5's bucketize and issues its two table
+// gathers; the batch finishes after the warp's next score, which the
+// gathers overlap. Ragged n, d, tau and B are masked; nothing is padded.
+//
+// Qᵀ stays whole in shared memory up to 48 KB and streams through it in
+// chunks of 256 rows beyond (d > 614 at 16 queries), the consumer warps
+// synchronising between chunks on a named barrier; a chunk is a multiple
+// of 32 rows, which keeps each lane's fmaf order and so every score. Each
+// instance is built for a number of blocks an SM (min_blocks); the
+// launcher picks the largest T (64 down to 8) whose ring of at least two
+// stages fits that many, else two, else one; where K4's thresholds rows
+// do not fit even so (large tau), they are searched in global memory, 512
+// values at a time staged in the warp's scratch.
+// Rows longer than two stages of one row each can hold (d past about
+// 25,000 at f32) are refused (cudaErrorInvalidValue).
 //
 // K7 (k7_bound_ranks_bf16_masked, k7_bound_ranks_int8_masked) is this
 // kernel behind K6's row map. It replaces the TPU kernel
 // repro/kernels/user_scores.py bound_ranks_batched_quant_masked_kernel_call:
-// compact row r computes global row ids[r / block_n]·block_n + r % block_n,
-// whose per-row vectors (slack, scales, offsets, thr_dev) are read at the
-// same global row, and a compact row past n is written as m + 2 in all
-// three outputs. The kept tiles of K7 are bitwise K4's / K5's outputs.
+// compact rows [e·block_n, (e+1)·block_n) read global rows from
+// ids[e]·block_n on, whose per-row vectors (slack, scales, offsets,
+// thr_dev) are read at the same global rows, and a compact row past n is
+// written as m + 2 in all three outputs. The producer reads each tile's
+// map entry and copies that entry's rows as tiles of T, so no row waits
+// on a load of its id. The kept tiles of K7 are bitwise K4's / K5's
+// outputs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "step1_common.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;     // users in flight per block, one warp each
-constexpr int kMaxB = 16;     // queries per launch
-constexpr int kUChunk = 8;    // user-row values each lane loads at once
-constexpr int kTChunk = 16;   // thresholds each lane loads at once
-constexpr int kTile = 32 * kTChunk;  // thresholds a warp searches at once
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kQChunk = 256;  // rows of Qᵀ a streamed chunk holds
-constexpr size_t kSmemDefault = 48 * 1024;
+constexpr int kConsumers = kWarps * 32;        // threads that compute
+constexpr int kThreads = kConsumers + 32;      // and one producer warp
+constexpr int kMaxStages = 4;
+constexpr size_t kQWhole = 48 * 1024;          // Qᵀ whole up to this
+constexpr size_t kBudgetOne = 220 * 1024;      // a block, one an SM
+constexpr unsigned kBarBytes = 2 * kMaxStages * 8;
+
+// Rows a warp sums at once: at 8 and 16 queries a lane reads NB floats
+// of Qᵀ from shared memory for every k of a row; two rows share each
+// value read, which halves that traffic and gives a lane two independent
+// chains
+__host__ __device__ constexpr int rows_at_once(int nb) {
+  return nb >= 8 ? 2 : 1;
+}
+
+// Blocks an SM each instance is built for. The ring hides the loads, so
+// what holds a warp back is the latency of its own chain (shared-memory
+// loads, shuffles, the lookup's divisions): the more warps, the better.
+// At one query a lane holds little (56 registers at four blocks), at two
+// and four the sums of every query (72 at three), at eight and sixteen
+// those of two rows (112 at two).
+__host__ __device__ constexpr int min_blocks(int nb) {
+  return nb == 1 ? 4 : rows_at_once(nb) == 2 ? 2 : 3;
+}
+
+// A block's shared memory when `blocks` share an SM's 228 KB, each
+// with 1 KB the runtime keeps
+constexpr size_t share(int blocks) {
+  return blocks >= 4 ? 54 * 1024
+         : blocks == 3 ? 72 * 1024
+         : blocks == 2 ? 110 * 1024 : kBudgetOne;
+}
 
 enum Kind { kBf16 = 0, kInt8 = 1 };
-
-// Qᵀ row stride in shared memory, as K1: 20 (NB = 16) or 12 (NB = 8)
-// floats keep the eight lanes of a quarter-warp on distinct banks.
-template <int NB>
-__host__ __device__ constexpr int q_stride() { return NB >= 8 ? NB + 4 : NB; }
-
-template <int NB>
-__host__ __device__ constexpr int log2_nb() {
-  return NB >= 16 ? 4 : NB >= 8 ? 3 : NB >= 4 ? 2 : NB >= 2 ? 1 : 0;
-}
-
-// K1's reduction: sum v[b] over the 32 lanes for all b < NB; lane l ends
-// with the sum of query l >> (5 - log2 NB) in v[0].
-template <int NB, int CUR, int OFF>
-__device__ __forceinline__ void halve(float (&v)[NB], int lane) {
-  if constexpr (CUR > 1) {
-    constexpr int kHalf = CUR / 2;
-    const bool upper = (lane & OFF) != 0;
-#pragma unroll
-    for (int i = 0; i < kHalf; ++i) {
-      const float send = upper ? v[i] : v[i + kHalf];
-      const float keep = upper ? v[i + kHalf] : v[i];
-      v[i] = keep + __shfl_xor_sync(kFull, send, OFF);
-    }
-    halve<NB, kHalf, OFF / 2>(v, lane);
-  } else {
-#pragma unroll
-    for (int off = OFF; off > 0; off >>= 1)
-      v[0] += __shfl_xor_sync(kFull, v[0], off);
-  }
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -144,6 +165,207 @@ __device__ __forceinline__ int count_probed(const __nv_bfloat16* t, int tau,
   return idx;
 }
 
+// #{t_j <= key} (le) or #{t_j < key} of an ascending row, one key a lane:
+// a branchless binary search over the whole row
+__device__ __forceinline__ int count_search(const __nv_bfloat16* t, int tau,
+                                            float key, bool le) {
+  int pos = 0;
+  for (int step = 1 << (31 - __clz(tau)); step > 0; step >>= 1) {
+    if (pos + step <= tau) {
+      const float x = __bfloat162float(t[pos + step - 1]);
+      if (le ? x <= key : x < key) pos += step;
+    }
+  }
+  return pos;
+}
+
+// The same on a row in global memory: each 512-value chunk is staged as
+// f32 in the warp's scratch ts and searched there
+__device__ __forceinline__ int count_chunked(const __nv_bfloat16* t, int tau,
+                                             float key, bool le, float* ts,
+                                             int lane) {
+  int idx = 0;
+  for (int j0 = 0; j0 < tau; j0 += kTile) {
+    const int len = min(kTile, tau - j0);
+    float tv[kTChunk];
+#pragma unroll
+    for (int i = 0; i < kTChunk; ++i) {
+      const int j = j0 + lane + 32 * i;
+      tv[i] = j < tau ? __bfloat162float(t[j]) : 0.f;
+    }
+    __syncwarp();  // the previous chunk's searches are done
+#pragma unroll
+    for (int i = 0; i < kTChunk; ++i) ts[lane + 32 * i] = tv[i];
+    __syncwarp();
+    int pos = 0;
+#pragma unroll
+    for (int step = kTile; step > 0; step >>= 1) {
+      if (pos + step <= len) {
+        const float x = ts[pos + step - 1];
+        if (le ? x <= key : x < key) pos += step;
+      }
+    }
+    idx += pos;
+  }
+  return idx;
+}
+
+// ------------------------------------------------ barriers and copies
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed. A
+// wait takes at most a tile's work; one that outlasts 2^26 polls (seconds)
+// traps, so that a fault in the ring ends the launch with an error rather
+// than holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0, polls = 0;
+  do {
+    if (++polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Order this thread's generic-proxy accesses to shared memory before the
+// bulk copies that follow
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The consumer warps only (the producer warp never joins)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+}
+
+// Bytes [src, src + len) of global memory land at region + (src & 15):
+// the head and tail outside the 16-byte-aligned middle by the lanes'
+// ordinary loads here; returns the middle's bytes, which copy_bulk moves
+__device__ __forceinline__ unsigned copy_edges(unsigned char* region,
+                                               const unsigned char* src,
+                                               unsigned len, int lane) {
+  const uintptr_t s = reinterpret_cast<uintptr_t>(src);
+  unsigned char* dst = region + (s & 15u);
+  const uintptr_t lo = (s + 15u) & ~uintptr_t(15);
+  const uintptr_t hi = (s + len) & ~uintptr_t(15);
+  const bool bulk = hi > lo;
+  const unsigned head = bulk ? (unsigned)(lo - s) : len;
+  const unsigned tail = bulk ? (unsigned)(hi - s) : len;
+  for (unsigned i = lane; i < head; i += 32) dst[i] = src[i];
+  for (unsigned i = tail + lane; i < len; i += 32) dst[i] = src[i];
+  return bulk ? (unsigned)(hi - lo) : 0u;
+}
+
+__device__ __forceinline__ void copy_bulk(unsigned char* region,
+                                          const unsigned char* src,
+                                          unsigned len, uint64_t* bar) {
+  const uintptr_t s = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t lo = (s + 15u) & ~uintptr_t(15);
+  const uintptr_t hi = (s + len) & ~uintptr_t(15);
+  if (hi > lo)
+    bulk_g2s(region + (s & 15u) + (lo - s),
+             reinterpret_cast<const void*>(lo), (unsigned)(hi - lo), bar);
+}
+
+// ------------------------------------------------------------- layout
+// One block's shared memory: the ring's barriers, Qᵀ (whole or one
+// streamed chunk), K4's per-warp search scratch where its thresholds
+// rows are not staged, then S stages of one tile each: a 16-byte header
+// and one region per staged array, each 16 bytes longer than T rows.
+struct Layout {
+  int T;       // rows a tile holds
+  int S;       // stages of the ring
+  int thr;     // K4's thresholds rows staged (1) or searched in place
+  int qrows;   // rows of Qᵀ in shared memory at once
+  unsigned q_off, ts_off, ring_off, stage_bytes;
+  unsigned rows_off, thr_off, vec_off, vec_cap;
+  unsigned total;
+};
+
+inline unsigned align16(size_t x) {
+  return (unsigned)((x + 15) & ~size_t(15));
+}
+
+bool plan(Layout& L, int kind, size_t elem, int nb, int d, int tau) {
+  const size_t stride = nb >= 8 ? nb + 4 : nb;
+  const int qrows = (size_t)d * stride * 4 <= kQWhole ? d : kQChunk;
+  const int nvec = kind == kBf16 ? 1 : 7;
+  const int tiles[] = {64, 32, 16, 8, 4, 2, 1};
+  const size_t budgets[] = {share(min_blocks(nb)), share(2), kBudgetOne};
+  for (const size_t budget : budgets) {
+    for (int thr = kind == kBf16 ? 1 : 0; thr >= 0; --thr) {
+      for (const int T : tiles) {
+        if (T < 8 && budget != kBudgetOne) break;
+        const unsigned rows_cap = align16((size_t)T * d * elem) + 16;
+        const unsigned thr_cap = thr ? align16((size_t)T * 2 * tau) + 16 : 0;
+        const unsigned vec_cap = align16(4 * (size_t)T) + 16;
+        const size_t stage = 16 + rows_cap + thr_cap + (size_t)nvec * vec_cap;
+        const size_t q_bytes = align16((size_t)qrows * stride * 4);
+        const size_t ts_bytes =
+            kind == kBf16 && !thr && nb > 1 ? (size_t)kWarps * kTile * 4 : 0;
+        const size_t fixed = kBarBytes + q_bytes + ts_bytes;
+        if (fixed + 2 * stage > budget) continue;
+        L.T = T;
+        L.S = (int)((budget - fixed) / stage);
+        if (L.S > kMaxStages) L.S = kMaxStages;
+        L.thr = thr;
+        L.qrows = qrows;
+        L.q_off = kBarBytes;
+        L.ts_off = (unsigned)(kBarBytes + q_bytes);
+        L.ring_off = (unsigned)fixed;
+        L.stage_bytes = (unsigned)stage;
+        L.rows_off = 16;
+        L.thr_off = 16 + rows_cap;
+        L.vec_off = 16 + rows_cap + thr_cap;
+        L.vec_cap = vec_cap;
+        L.total = (unsigned)(fixed + L.S * stage);
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
 struct Args {
   const void* U;           // (n, d) rows: bf16 (K4), int8 (K5) or f32
   const float* uscale;     // (n,) K5 only
@@ -166,72 +388,90 @@ struct Args {
   const int* ids;          // the row map (nullptr: identity), K7
   int block_n;             // rows a map entry names
   int rows;                // compact rows to compute (n without a map)
-  int qrows;               // rows of Qᵀ in shared memory at once
+  int ntiles;              // tiles of the launch
+  int tpe;                 // tiles a map entry spans (K7)
+  Layout L;
 };
 
-// The global row of compact row r < rows, or n for a row past n
+// Per-user vector v of the staged order: slack first (K4 stages only it)
+__device__ __forceinline__ const float* vec_ptr(const Args& a, int v) {
+  switch (v) {
+    case 0: return a.uslack;
+    case 1: return a.uscale;
+    case 2: return a.thr_sc;
+    case 3: return a.thr_off;
+    case 4: return a.thr_dev;
+    case 5: return a.tab_sc;
+    default: return a.tab_off;
+  }
+}
+
+// Staged array k: its base, bytes per row and region in a stage
+template <int KIND, typename RowT, bool THR>
+__device__ __forceinline__ void staged_array(const Args& a, int k,
+                                             const unsigned char*& base,
+                                             unsigned& row_bytes,
+                                             unsigned& region) {
+  constexpr int kV0 = KIND == kBf16 && THR ? 2 : 1;
+  if (k == 0) {
+    base = static_cast<const unsigned char*>(a.U);
+    row_bytes = a.d * sizeof(RowT);
+    region = a.L.rows_off;
+  } else if (k < kV0) {
+    base = reinterpret_cast<const unsigned char*>(a.thr);
+    row_bytes = 2 * a.tau;
+    region = a.L.thr_off;
+  } else {
+    base = reinterpret_cast<const unsigned char*>(vec_ptr(a, k - kV0));
+    row_bytes = 4;
+    region = a.L.vec_off + (k - kV0) * a.L.vec_cap;
+  }
+}
+
+// Where global row g0 of an array (row_bytes per row) lands in a stage:
+// at its address modulo 16, which with a 16-byte-aligned base (check())
+// is its offset modulo 16
+__device__ __forceinline__ const unsigned char* staged_at(
+    const unsigned char* stage, unsigned region, int g0,
+    unsigned row_bytes) {
+  return stage + region + (((size_t)g0 * row_bytes) & 15u);
+}
+
+// A tile: compact rows [c0, c0 + cnt), read from global rows g0.. of
+// which the first `live` lie below n (live < cnt only past n under K7)
+struct TileHdr {
+  int c0, cnt, g0, live;
+};
+
 template <bool MASKED>
-__device__ __forceinline__ int global_row(const Args& a, int r) {
-  if constexpr (!MASKED) return r;
-  const int g = a.ids[r / a.block_n] * a.block_n + r % a.block_n;
-  return g < a.n ? g : a.n;
-}
-
-// Rows [c0, c0 + len) of Qᵀ into shared memory: qs[k - c0][b]
-template <int NB>
-__device__ __forceinline__ void stage_q(float* qs, const Args& a, int c0,
-                                        int len) {
-  constexpr int kStride = q_stride<NB>();
-  for (int i = threadIdx.x; i < len * NB; i += blockDim.x) {
-    const int k = i / NB, b = i % NB;
-    qs[k * kStride + b] = b < a.B ? a.Q[(size_t)b * a.d + c0 + k] : 0.f;
+__device__ __forceinline__ TileHdr tile_of(const Args& a, int t) {
+  TileHdr h;
+  if constexpr (!MASKED) {
+    h.c0 = h.g0 = t * a.L.T;
+    h.cnt = h.live = min(a.L.T, a.rows - h.c0);
+  } else {
+    const int e = t / a.tpe;
+    const int j = (t - e * a.tpe) * a.L.T;
+    h.c0 = e * a.block_n + j;
+    h.cnt = min(a.L.T, a.block_n - j);
+    h.g0 = a.ids[e] * a.block_n + j;
+    h.live = max(0, min(h.cnt, a.n - h.g0));
   }
+  return h;
 }
 
-// acc[b] += u_k·q_bk over this lane's k in [c0, c1), one fmaf each in
-// ascending k; qs holds rows c0.. of Qᵀ
-template <int NB, typename RowT>
-__device__ __forceinline__ void dot_chunk(float (&acc)[NB], const RowT* u,
-                                          const float* qs, int c0, int c1,
-                                          int lane) {
-  constexpr int kStride = q_stride<NB>();
-  for (int k0 = c0; k0 < c1; k0 += 32 * kUChunk) {
-    float uv[kUChunk];
-#pragma unroll
-    for (int i = 0; i < kUChunk; ++i) {
-      const int k = k0 + lane + 32 * i;
-      uv[i] = k < c1 ? to_f32(u[k]) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kUChunk; ++i) {
-      const int k = k0 + lane + 32 * i;
-      if (k < c1) {
-        const float* qk = qs + (k - c0) * kStride;
-        float qv[NB];
-        if constexpr (NB >= 4) {
-#pragma unroll
-          for (int c = 0; c < NB / 4; ++c) {
-            const float4 x = reinterpret_cast<const float4*>(qk)[c];
-            qv[4 * c] = x.x;
-            qv[4 * c + 1] = x.y;
-            qv[4 * c + 2] = x.z;
-            qv[4 * c + 3] = x.w;
-          }
-        } else {
-#pragma unroll
-          for (int b = 0; b < NB; ++b) qv[b] = qk[b];
-        }
-#pragma unroll
-        for (int b = 0; b < NB; ++b) acc[b] = fmaf(uv[i], qv[b], acc[b]);
-      }
-    }
-  }
-}
-
-// query._est_from_grid for one (user, query), in its operation order.
-// frac = clip((s − thr_up)/span, 0, 1) divides only inside (0, span):
-// outside it the clipped quotient is 0 or 1 exactly, and at the grid's
-// edges (span = 1e-12) the quotient would take the division's slow path
+// ------------------------------------------------------------- lookup
+// query._est_from_grid for one (user, query), each value by the same
+// expression in the same operation order. Only what the result selects
+// is computed: frac = clip((s − thr_up)/span, 0, 1) divides only inside
+// (0, span), where outside it the clipped quotient is 0 or 1 exactly (and
+// at the grid's edges, span = 1e-12, would take the division's slow
+// path); m_above = max(s − e_hi, 0)/rng and m_below divide only where
+// their numerator is positive, being +0 elsewhere; the estimates above
+// and below the grid are computed only where idx selects them; and the
+// final tie-break subtracts 0.5·m_above/(1 + m_above), which is +0 unless
+// s > e_hi (e >= 1, so e − 0 = e). Most (user, query) pairs lie inside
+// the grid and skip four divisions and the exp.
 __device__ __forceinline__ float est_from_grid(float s, int idx, int tau,
                                                float thr_up, float thr_lo,
                                                float e_lo, float e_hi,
@@ -242,47 +482,27 @@ __device__ __forceinline__ float est_from_grid(float s, int idx, int tau,
   const float x = s - thr_up;
   const float frac = x <= 0.f ? 0.f : (x >= span ? 1.f : x / span);
   const bool interior = idx > 0 && idx < tau;
-  const float est_in = rup + (rlo - rup) * frac;
   const float rng = fmaxf(e_hi - e_lo, 1e-12f);
-  const float m_above = fmaxf(s - e_hi, 0.f) / rng;
-  const float m_below = fmaxf(e_lo - s, 0.f) / rng;
-  const float est_above = 1.f + (rup - 1.f) / (1.f + ftau * m_above);
-  const float est_below =
-      m_plus_1 - (m_plus_1 - rlo) * expf(-ftau * m_below);
-  float e = interior ? est_in : (idx == tau ? est_above : est_below);
+  const float m_above = s > e_hi ? (s - e_hi) / rng : 0.f;
+  float e;
+  if (interior) {
+    e = rup + (rlo - rup) * frac;
+  } else if (idx == tau) {
+    e = 1.f + (rup - 1.f) / (1.f + ftau * m_above);
+  } else {
+    const float m_below = e_lo > s ? (e_lo - s) / rng : 0.f;
+    e = m_plus_1 - (m_plus_1 - rlo) * expf(-ftau * m_below);
+  }
   e = fminf(fmaxf(e, rlo), rup);
-  return e - 0.5f * m_above / (1.f + m_above);
+  return s > e_hi ? e - 0.5f * m_above / (1.f + m_above) : e;
 }
 
-// K4's lookup for one (user, query), given the two search counts
-__device__ __forceinline__ void finish_bf16(const Args& a, int user, size_t o,
-                                            float s, int idx_lo, int idx_hi,
-                                            const __nv_bfloat16* t,
-                                            float e_lo, float e_hi) {
-  const int tau = a.tau;
-  const __nv_bfloat16* tb =
-      static_cast<const __nv_bfloat16*>(a.tab) + (size_t)user * tau;
-  const int up_col = min(max(idx_lo - 1, 0), tau - 1);
-  const int lo_col = min(idx_hi, tau - 1);
-  const float rup =
-      idx_lo == 0 ? a.m_plus_1 : __bfloat162float(tb[up_col]) * a.c0;
-  const float rlo = idx_hi == tau ? 1.f : __bfloat162float(tb[lo_col]) * a.c1;
-  const float thr_up = __bfloat162float(t[min(max(idx_hi - 1, 0), tau - 1)]);
-  const float thr_lo = __bfloat162float(t[lo_col]);
-  a.r_lo[o] = rlo;
-  a.r_up[o] = rup;
-  a.est[o] = est_from_grid(s, idx_hi, tau, thr_up, thr_lo, e_lo, e_hi, rlo,
-                           rup, a.m_plus_1);
-}
-
-// K5's lookup for one (user, query): closed-form bucketize of the score
-// s (already times the user's scale) and its slack
-__device__ __forceinline__ void finish_int8(const Args& a, int user, size_t o,
-                                            float s, float slack, float sc_t,
-                                            float off_t, float dev,
-                                            float sc_b, float off_b) {
-  const int tau = a.tau;
-  const float delta = a.c0;
+// K5's closed-form bucketize of the score s (already times the user's
+// scale) and its slack
+__device__ __forceinline__ void int8_indices(float s, float slack, float sc_t,
+                                             float off_t, float dev,
+                                             float delta, int tau,
+                                             int& idx_lo, int& idx_hi) {
   const float ftau = (float)tau;
   const float s_n = (s - off_t) / sc_t;
   const float d_n = slack / sc_t;
@@ -292,237 +512,435 @@ __device__ __forceinline__ void finish_int8(const Args& a, int user, size_t o,
       (int)fminf(fmaxf(floorf((v_hi + 127.f) / delta), -1.f), ftau) + 1;
   const int c_lo =
       (int)fminf(fmaxf(floorf((v_lo + 127.f) / delta), -1.f), ftau) + 1;
-  const int idx_hi = min(max(c_hi, 0), tau);
-  const int idx_lo = min(max(c_lo, 0), tau);
-  const int8_t* tb = static_cast<const int8_t*>(a.tab) + (size_t)user * tau;
-  const float wid = a.c2 * sc_b;
-  const int up_col = min(max(idx_lo - 1, 0), tau - 1);
-  const int lo_col = min(idx_hi, tau - 1);
-  const float rup = idx_lo == 0 ? a.m_plus_1
-                                : ((float)tb[up_col] * sc_b + off_b) + wid;
-  const float rlo =
-      idx_hi == tau ? 1.f : ((float)tb[lo_col] * sc_b + off_b) - wid;
-  const int c_up = min(max(idx_hi - 1, 0), tau - 1);
-  const float thr_up = ((float)c_up * delta - 127.f) * sc_t + off_t;
-  const float thr_lo = ((float)lo_col * delta - 127.f) * sc_t + off_t;
-  a.r_lo[o] = rlo;
-  a.r_up[o] = rup;
-  a.est[o] = est_from_grid(s, idx_hi, tau, thr_up, thr_lo,
-                           -127.f * sc_t + off_t, 127.f * sc_t + off_t, rlo,
-                           rup, a.m_plus_1);
+  idx_hi = min(max(c_hi, 0), tau);
+  idx_lo = min(max(c_lo, 0), tau);
 }
 
-// At several queries a lane holds much state (sums, K4's staged chunk,
-// the batch's results); asking for four resident blocks an SM caps it at
-// 64 registers. K4 runs faster so despite a few spills; K5 at 16
-// queries, uncapped, took just over 64 and ran a third slower on the
-// three blocks an SM that left room for.
-//
-// STREAM is a.qrows < d and MASKED is a.ids != nullptr, as in K1: only
-// then does the loop hold block barriers, or the row map's dependent
-// loads and branches.
-template <int NB, int KIND, typename RowT, bool STREAM, bool MASKED>
-__global__ void __launch_bounds__(kWarps * 32, NB > 1 ? 4 : 1)
-quant_bound_ranks_kernel(const Args a) {
-  constexpr int kStride = q_stride<NB>();
-  constexpr int kShift = 5 - log2_nb<NB>();  // lanes per query: 1 << kShift
-  constexpr int kG = 32 / NB;                // users per batch of a warp
-  constexpr bool kStage = KIND == kBf16 && NB > 1;
-  extern __shared__ __align__(16) float qs[];  // (qrows, stride): qs[k][b]
-  const int d = a.d, tau = a.tau;
-  float* ts = qs + a.qrows * kStride + (threadIdx.x >> 5) * kTile;
-  if constexpr (!STREAM) {
-    stage_q<NB>(qs, a, 0, d);
-    __syncthreads();
+// What the lane that finishes a (row, query) takes out of the stage at
+// the row's turn (the score, K4's counts and thresholds, K5's scalars),
+// and the table values it loads when the batch is full
+struct Fin {
+  int row, user;           // compact row of the outputs, global row
+  int j;                   // its row in the current tile until harvested
+  int lo, hi;              // idx_lo, idx_hi
+  float s;                 // the score (K5: times the user's scale)
+  float thr_up, thr_lo, e_lo, e_hi;   // K4: thresholds around idx_hi
+  float slack, dev;                   // K5: slack, thr_dev + pad
+  float sc_t, off_t, sc_b, off_b;     // K5: the row's affines
+  __nv_bfloat16 bu, bl;    // K4: T̃[idx_lo − 1], T̃[idx_hi] (clamped)
+  int8_t iu, il;           // K5: the same codes
+};
+
+// A full batch, on every lane at once: K5's bucketize, then both kinds'
+// two table gathers, whose values are first used by finish()
+template <int KIND>
+__device__ __forceinline__ void prepare(const Args& a, Fin& f) {
+  const int tau = a.tau;
+  if constexpr (KIND == kBf16) {
+    const __nv_bfloat16* tb =
+        static_cast<const __nv_bfloat16*>(a.tab) + (size_t)f.user * tau;
+    f.bu = tb[min(max(f.lo - 1, 0), tau - 1)];
+    f.bl = tb[min(f.hi, tau - 1)];
+  } else {
+    int8_indices(f.s, f.slack, f.sc_t, f.off_t, f.dev, a.c0, tau, f.lo,
+                 f.hi);
+    const int8_t* tb = static_cast<const int8_t*>(a.tab) + (size_t)f.user * tau;
+    f.iu = tb[min(max(f.lo - 1, 0), tau - 1)];
+    f.il = tb[min(f.hi, tau - 1)];
   }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int my_b = lane >> kShift;         // query of this lane's sums
-  const float qn = my_b < a.B ? a.qnorm1[my_b] : 0.f;
-  // lane L finishes query L % NB of the batch's user L / NB
-  const int fin_b = lane % NB;
-  const int fin_g = lane / NB;
-  const float fin_qn = fin_b < a.B ? a.qnorm1[fin_b] : 0.f;
-  const RowT* U = static_cast<const RowT*>(a.U);
+}
 
-  // a warp takes kG rows at a time. Streamed, every warp of a block runs
-  // the same iterations, so that the block can synchronise on each chunk
-  // of Qᵀ, and a warp without a row only stages
-  for (int b0 = (blockIdx.x * kWarps + (STREAM ? 0 : warp)) * kG;
-       b0 < a.rows; b0 += gridDim.x * kWarps * kG) {
-    const int base = STREAM ? b0 + warp * kG : b0;
-    // the finishing user's per-user values, loaded before any score
-    const int fuser =
-        MASKED ? min(global_row<MASKED>(a, min(base + fin_g, a.rows - 1)),
-                     a.n - 1)
-               : min(base + fin_g, a.n - 1);
-    const float uslack = a.uslack[fuser];
-    float uscale = 1.f, sc_t = 1.f, off_t = 0.f, dev = 0.f, sc_b = 1.f,
-          off_b = 0.f, e_lo = 0.f, e_hi = 0.f;
-    const __nv_bfloat16* ft = nullptr;
-    if constexpr (KIND == kInt8) {
-      uscale = a.uscale[fuser];
-      sc_t = a.thr_sc[fuser];
-      off_t = a.thr_off[fuser];
-      dev = a.thr_dev[fuser] + a.c1;
-      sc_b = a.tab_sc[fuser];
-      off_b = a.tab_off[fuser];
-    } else {
-      ft = a.thr + (size_t)fuser * tau;
-      e_lo = __bfloat162float(ft[0]);
-      e_hi = __bfloat162float(ft[tau - 1]);
-    }
-    float s_fin = 0.f;
-    int lo_fin = 0, hi_fin = 0;
+template <int KIND>
+__device__ __forceinline__ void finish(const Args& a, const Fin& f, int b) {
+  const int tau = a.tau;
+  const size_t o = (size_t)f.row * a.ldo + b;
+  if constexpr (KIND == kBf16) {
+    const float rup = f.lo == 0 ? a.m_plus_1 : __bfloat162float(f.bu) * a.c0;
+    const float rlo = f.hi == tau ? 1.f : __bfloat162float(f.bl) * a.c1;
+    a.r_lo[o] = rlo;
+    a.r_up[o] = rup;
+    a.est[o] = est_from_grid(f.s, f.hi, tau, f.thr_up, f.thr_lo, f.e_lo,
+                             f.e_hi, rlo, rup, a.m_plus_1);
+  } else {
+    const float delta = a.c0;
+    const float wid = a.c2 * f.sc_b;
+    const float rup = f.lo == 0 ? a.m_plus_1
+                                : ((float)f.iu * f.sc_b + f.off_b) + wid;
+    const float rlo =
+        f.hi == tau ? 1.f : ((float)f.il * f.sc_b + f.off_b) - wid;
+    const int c_up = min(max(f.hi - 1, 0), tau - 1);
+    const int lo_col = min(f.hi, tau - 1);
+    const float thr_up = ((float)c_up * delta - 127.f) * f.sc_t + f.off_t;
+    const float thr_lo = ((float)lo_col * delta - 127.f) * f.sc_t + f.off_t;
+    a.r_lo[o] = rlo;
+    a.r_up[o] = rup;
+    a.est[o] = est_from_grid(f.s, f.hi, tau, thr_up, thr_lo,
+                             -127.f * f.sc_t + f.off_t,
+                             127.f * f.sc_t + f.off_t, rlo, rup, a.m_plus_1);
+  }
+}
 
-    for (int g = 0; g < kG; ++g) {
-      const int r = base + g;
-      if (!STREAM && r >= a.rows) break;  // the same in every lane
-      // the same in every lane; without a map every row is a live user
-      const int user = r < a.rows ? global_row<MASKED>(a, r) : a.n;
-      const bool live = MASKED ? user < a.n : r < a.rows;
-      if (!STREAM && !live) continue;
-      const RowT* u = U + (size_t)user * d;
-      const __nv_bfloat16* t = nullptr;
-      float tv[kStage ? kTChunk : 1];
-      if constexpr (kStage) {
-        // the first chunk does not depend on the scores: its loads go
-        // out now and overlap those of the user row
-        t = a.thr + (size_t)user * tau;
-        if (live) {
+// dot_chunk over two rows at once: each Qᵀ value loaded feeds both rows'
+// fmaf chains, each of which runs as dot_chunk's (its k ascending, from
+// its own 0.0f), so each row's sums are bitwise dot_chunk's
+template <int NB, typename RowT>
+__device__ __forceinline__ void dot_rows2(float (&acc0)[NB],
+                                          float (&acc1)[NB],
+                                          const RowT* __restrict__ u0,
+                                          const RowT* __restrict__ u1,
+                                          const float* qs, int c0, int c1,
+                                          int lane) {
+  constexpr int kStride = q_stride<NB>();
+  constexpr int kU = kUChunk / 2;
+  for (int k0 = c0; k0 < c1; k0 += 32 * kU) {
+    float uv0[kU], uv1[kU];
 #pragma unroll
-          for (int i = 0; i < kTChunk; ++i) {
-            const int j = lane + 32 * i;
-            tv[i] = j < tau ? __bfloat162float(t[j]) : 0.f;
+    for (int i = 0; i < kU; ++i) {
+      const int k = k0 + lane + 32 * i;
+      uv0[i] = k < c1 ? to_f32(u0[k]) : 0.f;
+      uv1[i] = k < c1 ? to_f32(u1[k]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kU; ++i) {
+      const int k = k0 + lane + 32 * i;
+      if (k < c1) {
+        const float4* qk =
+            reinterpret_cast<const float4*>(qs + (k - c0) * kStride);
+#pragma unroll
+        for (int c = 0; c < NB / 4; ++c) {
+          const float4 x = qk[c];
+          const float qv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc0[4 * c + e] = fmaf(uv0[i], qv[e], acc0[4 * c + e]);
+            acc1[4 * c + e] = fmaf(uv1[i], qv[e], acc1[4 * c + e]);
           }
         }
       }
-      float acc[NB];
+    }
+  }
+}
+
+// ------------------------------------------------------------- kernel
+// MASKED is a.ids != nullptr; THR (K4) is a.L.thr: the thresholds rows
+// ride the ring, else they are searched in global memory.
+template <int NB, int KIND, typename RowT, bool MASKED, bool THR>
+__global__ void __launch_bounds__(kThreads, min_blocks(NB))
+quant_bound_ranks_kernel(const __grid_constant__ Args a) {
+  constexpr int kShift = 5 - log2_nb<NB>();  // lanes per query: 1 << kShift
+  constexpr int kG = 32 / NB;                // rows of a warp's batch
+  constexpr int kR = rows_at_once(NB);
+  constexpr int kVecs = KIND == kBf16 ? 1 : 7;
+  constexpr int kArrays = 1 + (KIND == kBf16 && THR ? 1 : 0) + kVecs;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  float* qs = reinterpret_cast<float*>(smem + a.L.q_off);  // qs[k][b]
+  unsigned char* ring = smem + a.L.ring_off;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int d = a.d, tau = a.tau, S = a.L.S;
+  const bool stream = a.L.qrows < d;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (!stream) stage_q<NB>(qs, a.Q, a.B, d, 0, d);
+  __syncthreads();
+
+  if (warp == kWarps) {
+    // the producer: tile i of this block into stage i % S
+    for (int t = blockIdx.x, i = 0; t < a.ntiles; t += gridDim.x, ++i) {
+      const int s = i % S;
+      mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
+      const TileHdr h = tile_of<MASKED>(a, t);
+      unsigned char* st = ring + (size_t)s * a.L.stage_bytes;
+      if (lane == 0) *reinterpret_cast<TileHdr*>(st) = h;
+      unsigned tx = 0;
 #pragma unroll
-      for (int b = 0; b < NB; ++b) acc[b] = 0.f;
-      if constexpr (STREAM) {
-        for (int c0 = 0; c0 < d; c0 += a.qrows) {
-          const int c1 = min(d, c0 + a.qrows);
-          __syncthreads();  // every warp is done with the previous chunk
-          stage_q<NB>(qs, a, c0, c1 - c0);
-          __syncthreads();
-          if (live) dot_chunk<NB>(acc, u, qs, c0, c1, lane);
-        }
-        if (!live) continue;
-      } else {
-        dot_chunk<NB>(acc, u, qs, 0, d, lane);
+      for (int k = 0; k < kArrays; ++k) {
+        const unsigned char* base;
+        unsigned rb, region;
+        staged_array<KIND, RowT, THR>(a, k, base, rb, region);
+        tx += copy_edges(st + region, base + (size_t)h.g0 * rb, h.live * rb,
+                         lane);
       }
-      halve<NB, NB, 16>(acc, lane);
-      const float s = acc[0];  // u·q_{my_b} over the stored row
-      int idx_lo = 0, idx_hi = 0;
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], tx);
+#pragma unroll
+        for (int k = 0; k < kArrays; ++k) {
+          const unsigned char* base;
+          unsigned rb, region;
+          staged_array<KIND, RowT, THR>(a, k, base, rb, region);
+          copy_bulk(st + region, base + (size_t)h.g0 * rb, h.live * rb,
+                    &full[s]);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  const int my_b = lane >> kShift;         // query of this lane's sums
+  const float qn = my_b < a.B ? a.qnorm1[my_b] : 0.f;
+  // lane L finishes query L % NB of the batch's row L / NB
+  const int fin_b = lane % NB;
+  const int fin_g = lane / NB;
+  const float fin_qn = fin_b < a.B ? a.qnorm1[fin_b] : 0.f;
+  float* ts = reinterpret_cast<float*>(smem + a.L.ts_off) + warp * kTile;
+  const int iters = (a.L.T + kWarps - 1) / kWarps;
+  const unsigned row_bytes = d * sizeof(RowT);
+  Fin f{};
+  f.j = -1;
+  int slot = 0;          // the batch's next row, the same in every lane
+  bool pending = false;  // a prepared batch waits for its finish
+  auto finish_batch = [&](int count) {
+    if (fin_g < count && fin_b < a.B) finish<KIND>(a, f, fin_b);
+  };
+
+  for (int t = blockIdx.x, i = 0; t < a.ntiles; t += gridDim.x, ++i) {
+    const int s = i % S;
+    mbar_wait(&full[s], (i / S) & 1);
+    const unsigned char* st = ring + (size_t)s * a.L.stage_bytes;
+    const TileHdr h = *reinterpret_cast<const TileHdr*>(st);
+    const RowT* rows = reinterpret_cast<const RowT*>(
+        staged_at(st, a.L.rows_off, h.g0, row_bytes));
+    const __nv_bfloat16* thr_s = nullptr;
+    if constexpr (KIND == kBf16 && THR)
+      thr_s = reinterpret_cast<const __nv_bfloat16*>(
+          staged_at(st, a.L.thr_off, h.g0, 2 * tau));
+    // per-user vector v (vec_ptr's order) of row j
+    const unsigned char* vecs = staged_at(st, a.L.vec_off, h.g0, 4);
+    auto vec = [&](int v, int j) {
+      return reinterpret_cast<const float*>(vecs + v * a.L.vec_cap)[j];
+    };
+    auto thr_row = [&](int j) {
+      return THR ? thr_s + (size_t)j * tau : a.thr + (size_t)(h.g0 + j) * tau;
+    };
+    // the values of this tile's rows that a batch finishes with, read by
+    // every lane that took one of them at once
+    auto harvest = [&]() {
+      if (f.j < 0) return;
       if constexpr (KIND == kBf16) {
-        // the user's slack comes from a lane that finishes it
-        const float slack = __shfl_sync(kFull, uslack, g * NB) * qn;
-        const float s_hi = round_bf16(s + slack);
-        const float s_lo = round_bf16(s - slack);
+        const __nv_bfloat16* tr = thr_row(f.j);
+        f.e_lo = __bfloat162float(tr[0]);
+        f.e_hi = __bfloat162float(tr[tau - 1]);
+      } else {
+        f.s = f.s * vec(1, f.j);
+        f.slack = vec(0, f.j) * fin_qn;
+        f.sc_t = vec(2, f.j);
+        f.off_t = vec(3, f.j);
+        f.dev = vec(4, f.j) + a.c1;
+        f.sc_b = vec(5, f.j);
+        f.off_b = vec(6, f.j);
+      }
+      f.j = -1;
+    };
+
+    // what follows a row's sums: the halving, K4's searches, and the
+    // row's turn in the warp's batch
+    auto row_step = [&](int j, float (&acc)[NB]) {
+      halve<NB, NB, 16>(acc, lane);
+      const float sc = acc[0];  // u·q_{my_b} over the stored row
+      // the first lane of query fin_b holds its values (every lane at NB 1)
+      const int src = fin_b << kShift;
+      const float sv = NB == 1 ? sc : __shfl_sync(kFull, sc, src);
+      int hv = 0, lv = 0;
+      float tuv = 0.f, tlv = 0.f;
+      if constexpr (KIND == kBf16) {
+        const __nv_bfloat16* tr = thr_row(j);
+        const float slack = vec(0, j) * qn;
+        const float s_hi = round_bf16(sc + slack);
+        const float s_lo = round_bf16(sc - slack);
+        int idx_hi, idx_lo;
         if constexpr (NB == 1) {
-          t = a.thr + (size_t)user * tau;
-          idx_hi = count_probed<false>(t, tau, s_hi, lane);
-          idx_lo = count_probed<true>(t, tau, s_lo, lane);
+          idx_hi = count_probed<false>(tr, tau, s_hi, lane);
+          idx_lo = count_probed<true>(tr, tau, s_lo, lane);
         } else {
           // each query has an even number of lanes: even lanes count
           // t <= s_hi, odd lanes t < s_lo, and the query's first lane
           // (even) takes idx_lo from its odd neighbour
           const bool hi_lane = (lane & 1) == 0;
           const float key = hi_lane ? s_hi : s_lo;
-          int idx = 0;
-          for (int j0 = 0;;) {
-            const int len = min(kTile, tau - j0);
-            __syncwarp();  // the previous chunk's searches are done
-#pragma unroll
-            for (int i = 0; i < kTChunk; ++i) ts[lane + 32 * i] = tv[i];
-            __syncwarp();
-            int pos = 0;
-#pragma unroll
-            for (int step = kTile; step > 0; step >>= 1) {
-              if (pos + step <= len) {
-                const float x = ts[pos + step - 1];
-                if (hi_lane ? x <= key : x < key) pos += step;
-              }
-            }
-            idx += pos;
-            j0 += kTile;
-            if (j0 >= tau) break;
-#pragma unroll
-            for (int i = 0; i < kTChunk; ++i) {
-              const int j = j0 + lane + 32 * i;
-              tv[i] = j < tau ? __bfloat162float(t[j]) : 0.f;
-            }
-          }
+          int idx;
+          if constexpr (THR)
+            idx = count_search(tr, tau, key, hi_lane);
+          else
+            idx = count_chunked(tr, tau, key, hi_lane, ts, lane);
           idx_hi = idx;
           idx_lo = __shfl_down_sync(kFull, idx, 1);
         }
-      }
-      // hand the user's results to the lanes that finish it: lane L with
-      // L / NB == g takes query L % NB from that query's first lane
-      const int src = fin_b << kShift;
-      const float sv = __shfl_sync(kFull, s, src);
-      if (fin_g == g) s_fin = sv;
-      if constexpr (KIND == kBf16) {
-        const int hv = __shfl_sync(kFull, idx_hi, src);
-        const int lv = __shfl_sync(kFull, idx_lo, src);
-        if (fin_g == g) {
-          hi_fin = hv;
-          lo_fin = lv;
+        // the thresholds around idx_hi, read where the counts are
+        const float tu =
+            __bfloat162float(tr[min(max(idx_hi - 1, 0), tau - 1)]);
+        const float tl = __bfloat162float(tr[min(idx_hi, tau - 1)]);
+        if constexpr (NB == 1) {
+          hv = idx_hi;
+          lv = idx_lo;
+          tuv = tu;
+          tlv = tl;
+        } else {
+          hv = __shfl_sync(kFull, idx_hi, src);
+          lv = __shfl_sync(kFull, idx_lo, src);
+          tuv = __shfl_sync(kFull, tu, src);
+          tlv = __shfl_sync(kFull, tl, src);
         }
       }
-    }
-
-    const int r = base + fin_g;
-    if (r < a.rows && fin_b < a.B) {
-      const int user = global_row<MASKED>(a, r);
-      const size_t o = (size_t)r * a.ldo + fin_b;
-      if (MASKED && user == a.n) {
-        a.r_lo[o] = a.r_up[o] = a.est[o] = a.m_plus_1 + 1.f;
-      } else if constexpr (KIND == kBf16) {
-        finish_bf16(a, user, o, s_fin, lo_fin, hi_fin, ft, e_lo, e_hi);
-      } else {
-        finish_int8(a, user, o, s_fin * uscale, uslack * fin_qn, sc_t,
-                    off_t, dev, sc_b, off_b);
+      // the previous batch finishes before its lanes take this row
+      if (pending) {
+        finish_batch(kG);
+        pending = false;
       }
+      if (fin_g == slot) {
+        f.row = h.c0 + j;
+        f.user = h.g0 + j;
+        f.j = j;
+        f.s = sv;
+        f.hi = hv;
+        f.lo = lv;
+        f.thr_up = tuv;
+        f.thr_lo = tlv;
+      }
+      if (++slot == kG) {
+        slot = 0;
+        harvest();
+        prepare<KIND>(a, f);
+        pending = true;
+      }
+    };
+
+    // every warp runs the same iterations, so that a streamed Qᵀ can
+    // synchronise the consumers; a warp without a row only stages. A
+    // warp takes kR rows at once, which share each Qᵀ value it loads.
+    for (int it = 0; it < iters; it += kR) {
+      int jr[kR];
+      bool live[kR];  // the same in every lane; live[1] implies live[0]
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        jr[r] = warp + (it + r) * kWarps;
+        live[r] = it + r < iters && jr[r] < h.live;
+        if (MASKED && !live[r] && it + r < iters && jr[r] < h.cnt &&
+            lane < a.B) {  // past n: m + 2
+          const size_t o = (size_t)(h.c0 + jr[r]) * a.ldo + lane;
+          a.r_lo[o] = a.r_up[o] = a.est[o] = a.m_plus_1 + 1.f;
+        }
+      }
+      float acc[kR][NB];
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+#pragma unroll
+        for (int b = 0; b < NB; ++b) acc[r][b] = 0.f;
+      auto dot = [&](int q0, int q1) {
+        const RowT* u0 = rows + (size_t)jr[0] * d;
+        if constexpr (kR == 2) {
+          if (live[1]) {
+            dot_rows2<NB>(acc[0], acc[1], u0, rows + (size_t)jr[1] * d, qs,
+                          q0, q1, lane);
+            return;
+          }
+        }
+        if (live[0]) dot_chunk<NB>(acc[0], u0, qs, q0, q1, lane);
+      };
+      if (stream) {
+        for (int q0 = 0; q0 < d; q0 += a.L.qrows) {
+          const int q1 = min(d, q0 + a.L.qrows);
+          consumer_sync();  // every warp is done with the previous chunk
+          stage_q<NB>(qs, a.Q, a.B, d, q0, q1 - q0, threadIdx.x, kConsumers);
+          consumer_sync();
+          dot(q0, q1);
+        }
+      } else {
+        dot(0, d);
+      }
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+        if (live[r]) row_step(jr[r], acc[r]);
     }
+    harvest();
+    mbar_arrive(&empty[s]);
+  }
+  if (!pending && slot > 0) prepare<KIND>(a, f);
+  finish_batch(pending ? kG : slot);
+}
+
+// ----------------------------------------------------------------- host
+using KernelFn = void (*)(const Args);
+
+template <int KIND, typename RowT, bool MASKED, bool THR>
+KernelFn pick_nb(int nb) {
+  switch (nb) {
+    case 1: return quant_bound_ranks_kernel<1, KIND, RowT, MASKED, THR>;
+    case 2: return quant_bound_ranks_kernel<2, KIND, RowT, MASKED, THR>;
+    case 4: return quant_bound_ranks_kernel<4, KIND, RowT, MASKED, THR>;
+    case 8: return quant_bound_ranks_kernel<8, KIND, RowT, MASKED, THR>;
+    default: return quant_bound_ranks_kernel<16, KIND, RowT, MASKED, THR>;
   }
 }
 
-template <int NB, int KIND, typename RowT>
-int launch(const Args& a, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int want = (a.rows + kWarps - 1) / kWarps;
-  const int blocks = want < sms * 8 ? want : sms * 8;
-  const bool stage = KIND == kBf16 && NB > 1;
-  const size_t tiles = stage ? (size_t)kWarps * kTile : 0;
-  Args b = a;
-  b.qrows = ((size_t)a.d * q_stride<NB>() + tiles) * sizeof(float) <=
-                    kSmemDefault
-                ? a.d
-                : kQChunk;
-  const size_t smem = ((size_t)b.qrows * q_stride<NB>() + tiles) *
-                      sizeof(float);
-  const bool streamed = b.qrows < a.d;
-  auto kernel = quant_bound_ranks_kernel<NB, KIND, RowT, false, false>;
-  if (streamed)
-    kernel = a.ids ? quant_bound_ranks_kernel<NB, KIND, RowT, true, true>
-                   : quant_bound_ranks_kernel<NB, KIND, RowT, true, false>;
-  else if (a.ids)
-    kernel = quant_bound_ranks_kernel<NB, KIND, RowT, false, true>;
-  kernel<<<blocks, kWarps * 32, smem, stream>>>(b);
-  return (int)cudaGetLastError();
+template <int KIND, typename RowT>
+KernelFn pick(int nb, bool masked, bool thr) {
+  if constexpr (KIND == kBf16) {
+    if (thr)
+      return masked ? pick_nb<KIND, RowT, true, true>(nb)
+                    : pick_nb<KIND, RowT, false, true>(nb);
+  }
+  return masked ? pick_nb<KIND, RowT, true, false>(nb)
+                : pick_nb<KIND, RowT, false, false>(nb);
 }
 
-template <int KIND, typename RowT>
-int dispatch(const Args& a, cudaStream_t st) {
-  if (a.B == 1) return launch<1, KIND, RowT>(a, st);
-  if (a.B == 2) return launch<2, KIND, RowT>(a, st);
-  if (a.B <= 4) return launch<4, KIND, RowT>(a, st);
-  if (a.B <= 8) return launch<8, KIND, RowT>(a, st);
-  return launch<16, KIND, RowT>(a, st);
+KernelFn resolve(int kind, bool rows_f32, int nb, bool masked, bool thr) {
+  if (kind == kBf16)
+    return rows_f32 ? pick<kBf16, float>(nb, masked, thr)
+                    : pick<kBf16, __nv_bfloat16>(nb, masked, thr);
+  return rows_f32 ? pick<kInt8, float>(nb, masked, thr)
+                  : pick<kInt8, int8_t>(nb, masked, thr);
+}
+
+int nb_of(int B) { return B == 1 ? 1 : B == 2 ? 2 : B <= 4 ? 4 : B <= 8 ? 8 : 16; }
+
+size_t elem_of(int kind, bool rows_f32) {
+  return rows_f32 ? 4 : kind == kBf16 ? 2 : 1;
+}
+
+// Blocks of `fn` an SM at `smem` bytes; remembered per (kernel, bytes).
+// A kernel's dynamic shared-memory limit is raised once, on its first
+// use, to the largest ring any plan asks for (a limit set per launch
+// would hold a later, larger launch back).
+int occupancy(KernelFn fn, unsigned smem, int* err) {
+  struct Seen {
+    KernelFn fn;
+    unsigned smem;
+    int blocks;
+  };
+  static Seen seen[128];
+  static int n_seen = 0;
+  bool known = false;
+  for (int i = 0; i < n_seen; ++i) {
+    if (seen[i].fn != fn) continue;
+    if (seen[i].smem == smem) return seen[i].blocks;
+    known = true;
+  }
+  cudaError_t e = cudaSuccess;
+  if (!known)
+    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kBudgetOne);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, reinterpret_cast<const void*>(fn), kThreads, smem);
+  if (e != cudaSuccess) {
+    *err = (int)e;
+    return 0;
+  }
+  if (n_seen < 128) seen[n_seen++] = Seen{fn, smem, blocks};
+  return blocks;
 }
 
 int check(const Args& a) {
@@ -530,7 +948,43 @@ int check(const Args& a) {
   if (a.B > kMaxB || a.tau < 2 || a.n <= 0 || a.d <= 0 ||
       (a.ids && a.block_n <= 0))
     return (int)cudaErrorInvalidValue;
+  // the arrays the ring stages start 16-byte aligned (staged_at)
+  const uintptr_t bases =
+      reinterpret_cast<uintptr_t>(a.U) | reinterpret_cast<uintptr_t>(a.thr) |
+      reinterpret_cast<uintptr_t>(a.uslack) |
+      reinterpret_cast<uintptr_t>(a.uscale) |
+      reinterpret_cast<uintptr_t>(a.thr_sc) |
+      reinterpret_cast<uintptr_t>(a.thr_off) |
+      reinterpret_cast<uintptr_t>(a.thr_dev) |
+      reinterpret_cast<uintptr_t>(a.tab_sc) |
+      reinterpret_cast<uintptr_t>(a.tab_off);
+  if (bases & 15u) return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+int run(Args a, int kind, int rows_f32, void* stream) {
+  const int bad = check(a);
+  if (bad) return bad < 0 ? 0 : bad;
+  const int nb = nb_of(a.B);
+  if (!plan(a.L, kind, elem_of(kind, rows_f32), nb, a.d, a.tau))
+    return (int)cudaErrorInvalidValue;
+  if (a.ids) {
+    a.tpe = (a.block_n + a.L.T - 1) / a.L.T;
+    a.ntiles = a.rows / a.block_n * a.tpe;
+  } else {
+    a.ntiles = (a.rows + a.L.T - 1) / a.L.T;
+  }
+  const KernelFn fn = resolve(kind, rows_f32, nb, a.ids != nullptr, a.L.thr);
+  int err = 0;
+  const int occ = occupancy(fn, a.L.total, &err);
+  if (err) return err;
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int blocks = a.ntiles < sms * occ ? a.ntiles : sms * occ;
+  fn<<<blocks, kThreads, a.L.total, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // K4's arguments; ids == nullptr is the identity map over n rows
@@ -561,11 +1015,7 @@ int run_bf16(const void* U, int rows_f32, const float* uslack,
   a.ids = ids;
   a.block_n = block_n;
   a.rows = rows;
-  const int bad = check(a);
-  if (bad) return bad < 0 ? 0 : bad;
-  const cudaStream_t st = (cudaStream_t)stream;
-  return rows_f32 ? dispatch<kBf16, float>(a, st)
-                  : dispatch<kBf16, __nv_bfloat16>(a, st);
+  return run(a, kBf16, rows_f32, stream);
 }
 
 // K5's arguments; ids == nullptr is the identity map over n rows
@@ -604,18 +1054,15 @@ int run_int8(const void* U, int rows_f32, const float* uscale,
   a.ids = ids;
   a.block_n = block_n;
   a.rows = rows;
-  const int bad = check(a);
-  if (bad) return bad < 0 ? 0 : bad;
-  const cudaStream_t st = (cudaStream_t)stream;
-  return rows_f32 ? dispatch<kInt8, float>(a, st)
-                  : dispatch<kInt8, int8_t>(a, st);
+  return run(a, kInt8, rows_f32, stream);
 }
 
 }  // namespace
 
 // Outputs are user-major with row stride ldo: out[user * ldo + b]. rows_f32
 // != 0 takes f32 user rows (raw users against a bf16 table: the caller
-// passes zero slack).
+// passes zero slack). Every array that rides the ring (rows, thr, uslack)
+// must start 16-byte aligned: the launcher checks.
 extern "C" int k4_bound_ranks_bf16(const void* U, int rows_f32,
                                    const float* uslack, const float* Q,
                                    const float* qnorm1, const void* thr,
@@ -669,6 +1116,39 @@ extern "C" int k7_bound_ranks_int8_masked(
                   thr_dev, tab, tab_sc, tab_off, ids, r_lo, r_up, est, n, d,
                   B, tau, ldo, m_plus_1, delta, dev_pad, widen_c,
                   nk * block_n, block_n, stream);
+}
+
+// The launch a K4 (kind 0) or K5 (kind 1) call at these sizes makes, and
+// its kernel's resources: out[0..8] = rows a tile, stages, thresholds
+// staged (K4), dynamic shared memory in bytes, blocks an SM, registers a
+// thread, local memory a thread in bytes (spills), rows of Qᵀ held at
+// once, static shared memory in bytes.
+extern "C" int quant_launch_config(int kind, int rows_f32, int B, int d,
+                                   int tau, int masked, int* out) {
+  Layout L{};
+  if (B < 1 || B > kMaxB || d < 1 || tau < 2 || (kind != kBf16 && kind != kInt8))
+    return (int)cudaErrorInvalidValue;
+  const int nb = nb_of(B);
+  if (!plan(L, kind, elem_of(kind, rows_f32), nb, d, tau))
+    return (int)cudaErrorInvalidValue;
+  const KernelFn fn = resolve(kind, rows_f32, nb, masked != 0, L.thr);
+  int err = 0;
+  const int occ = occupancy(fn, L.total, &err);
+  if (err) return err;
+  cudaFuncAttributes fa{};
+  const cudaError_t e =
+      cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(fn));
+  if (e != cudaSuccess) return (int)e;
+  out[0] = L.T;
+  out[1] = L.S;
+  out[2] = L.thr;
+  out[3] = (int)L.total;
+  out[4] = occ;
+  out[5] = fa.numRegs;
+  out[6] = (int)fa.localSizeBytes;
+  out[7] = L.qrows;
+  out[8] = (int)fa.sharedSizeBytes;
+  return 0;
 }
 
 extern "C" const char* repro_error_string(int code) {

@@ -18,14 +18,20 @@ a row map `block_ids`, one id per `block_n` rows, with compacted outputs
 
 Bound on the card: memory — U once, and per user and query the few
 threshold and table sectors that a search touches (K5 reads no
-thresholds). K1 and K4 at B > 1 read each thresholds row whole, once
-for all the queries of a launch. K6/K7: the same over the kept rows.
+thresholds). K1 at B > 1 and K4 at every B read each thresholds row
+whole, once for all the queries of a launch. K6/K7: the same over the
+kept rows.
 
-Any d: Qᵀ stays in shared memory whole where it fits and streams through
-it in 256-row chunks where it does not, with the same scores.
+Any d for K1/K6: Qᵀ stays in shared memory whole where it fits and
+streams through it in 256-row chunks where it does not, with the same
+scores. K4/K5/K7 stage tiles of rows through a shared-memory ring by bulk
+asynchronous copies; each array that rides the ring must start 16-byte
+aligned (checked here), and a row may take up to about 100 KB (d about
+25,000 at f32), beyond which the launch is refused.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -77,10 +83,21 @@ def bound_ranks_quant_kernel_call(kind: str, rows: torch.Tensor,
     K7 launch over the tiles they name. rows are the stored dtype or
     f32; uslack (n, 1) f32, and for K5 uscale (n, 1) f32. Writes
     row-major (rows, nb) outputs, which may be column slices of wider
-    arrays. Inputs are checked by the caller."""
+    arrays. Inputs are checked by the caller, except that each array the
+    kernel stages must start 16-byte aligned (ValueError here)."""
     n, d = rows.shape
     tau = rt.tau
     rows_f32 = int(rows.dtype == torch.float32)
+    staged = {"rows": rows, "uslack": uslack}
+    staged.update({"thresholds": rt.thresholds} if kind == "bf16" else
+                  {"uscale": uscale, "thr_scale": rt.thr_scale,
+                   "thr_off": rt.thr_off, "thr_dev": rt.thr_dev,
+                   "tab_scale": rt.tab_scale, "tab_off": rt.tab_off})
+    for name, t in staged.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned (a view "
+                             "at an offset is not): the kernel stages it "
+                             "by bulk copies")
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     common = (r_lo.data_ptr(), r_up.data_ptr(), est.data_ptr(), n, d,
               qs.shape[0], tau, r_lo.stride(0), float(rt.m + 1))
@@ -104,3 +121,23 @@ def bound_ranks_quant_kernel_call(kind: str, rows: torch.Tensor,
                 rt.table.data_ptr(), rt.tab_scale.data_ptr(),
                 rt.tab_off.data_ptr(), *ids, *common, delta, dev_pad,
                 widen_c, *tail)
+
+
+CONFIG_FIELDS = ("tile_rows", "stages", "thresholds_staged", "smem_bytes",
+                 "blocks_per_sm", "registers", "local_bytes", "q_rows",
+                 "static_smem_bytes")
+
+
+def quant_launch_config(kind: str, rows_f32: bool, B: int, d: int,
+                        tau: int, masked: bool = False) -> dict:
+    """The launch a K4 (kind "bf16"), K5 ("int8") or, masked, K7 call
+    makes at these sizes and its kernel's resources, read on the card
+    (`cudaFuncGetAttributes`): rows a tile, ring stages, whether K4's
+    thresholds rows are staged, dynamic shared memory, blocks an SM,
+    registers and local (spill) bytes a thread, rows of Qᵀ held at once,
+    static shared memory."""
+    out = (ctypes.c_int * len(CONFIG_FIELDS))()
+    _build.call("user_scores_quant", "quant_launch_config",
+                0 if kind == "bf16" else 1, int(rows_f32), B, d, tau,
+                int(masked), ctypes.addressof(out))
+    return dict(zip(CONFIG_FIELDS, out))

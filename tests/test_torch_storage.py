@@ -568,3 +568,124 @@ def test_quant_kernel_matches_plain_on_card(spec):
                 assert torch.equal(got[1], want[1].T)
                 torch.testing.assert_close(got[2], want[2].T,
                                            rtol=EST_RTOL, atol=0)
+
+
+# K4/K5/K7 stage tiles of rows through a shared-memory ring by bulk
+# copies; these cases drive the ring's edges on the card: a launch with
+# fewer rows than a tile and one row past a tile (the tile size read from
+# the launcher), rows whose bytes are not a multiple of 16 (d = 37), an
+# odd τ, a τ whose thresholds rows do not fit a stage (searched in global
+# memory instead), Qᵀ streamed (d = 1,031), K7 under a row map whose
+# entries start off 16 bytes, with a tail tile and duplicate ids, and a
+# view at an offset, which the launcher refuses.
+STAGING_CASES = ("n_below_tile", "n_past_tile", "d37", "tau777",
+                 "tau_past_stage", "d1031", "k7_tail_dups", "unaligned_view")
+
+
+def _card_table(spec, n, d, tau, m, seed):
+    """Integer users/items on the card and a `spec` rank table built
+    from them; (users, items, rt, stored users)."""
+    dev = torch.device("cuda")
+    users, items = _int_problem(seed, n=n, m=m, d=d)
+    U, P = torch.from_numpy(users).to(dev), torch.from_numpy(items).to(dev)
+    cfg = RankTableConfig(tau=tau, omega=4, s=16, storage_dtype=spec)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return U, P, rt_mod.build_rank_table(U, P, cfg, g), \
+        cfg.storage.pack_users(U)
+
+
+def _wide_tau_table(spec, n, tau, m, seed):
+    """A `spec` table whose rows are τ sorted integer thresholds and a
+    non-increasing integer table, packed from f32 on the card."""
+    rng = np.random.default_rng(seed)
+    thr = np.sort(rng.integers(-120, 121, (n, tau)), axis=1)
+    tab = np.sort(rng.integers(1, m + 2, (n, tau)), axis=1)[:, ::-1]
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)) \
+        .cuda()
+    cfg = RankTableConfig(tau=tau, storage_dtype=spec)
+    return cfg.storage.pack_table(to(thr), to(tab), m=m)
+
+
+def _assert_plain(u, qs, rt, spec):
+    """K4/K5 on integer inputs: bounds bitwise the plain version's, est
+    within 1e-5 relative."""
+    rows, uscale, uslack = ops.stored_parts(u, spec)
+    got = ops.bound_ranks_batched_stored(u, qs, rt)
+    want = ref.ref_bound_ranks_stored(rows, uscale, uslack, qs,
+                                      Q.query_l1(qs), rt)
+    assert torch.equal(got[0], want[0].T)
+    assert torch.equal(got[1], want[1].T)
+    torch.testing.assert_close(got[2], want[2].T, rtol=EST_RTOL, atol=0)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STAGING_CASES)
+@pytest.mark.parametrize("spec", SPECS)
+def test_quant_kernel_staging_on_card(spec, case):
+    """K4 (bf16) and K5 (int8), and K7 behind a row map, at the edges of
+    their shared-memory ring, on integer inputs: bounds bitwise their
+    plain version's (est 1e-5), K7's kept rows bitwise K4's / K5's. Run
+    on a machine with a GPU:
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_storage.py"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.core import pruning
+    from repro_torch.kernels import user_scores
+    if case in ("n_below_tile", "n_past_tile"):
+        U, P, rt, su = _card_table(spec, 200, 37, 37, 300, 21)
+        for B in (1, 16):
+            qs = P[:B].contiguous()
+            for u, raw in ((su, False), (U, True)):
+                T = user_scores.quant_launch_config(spec, raw, B, 37,
+                                                    37)["tile_rows"]
+                n = max(1, T - 3) if case == "n_below_tile" else T + 1
+                keep = torch.arange(n, device="cuda")
+                uu = U[:n] if raw else su.take_rows(keep)
+                _assert_plain(uu, qs, rt.take_rows(keep), spec)
+        return
+    if case == "unaligned_view":
+        U, P, rt, su = _card_table(spec, 300, 37, 37, 300, 22)
+        qs = P[:3].contiguous()
+        view = lambda t: None if t is None else t[1:]
+        rt_v = type(rt)(**{f: (rt.m if f == "m" else view(getattr(rt, f)))
+                           for f in rt._fields})
+        for u in (type(su)(*(view(x) for x in su)), U[1:]):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                ops.bound_ranks_batched_stored(u, qs, rt_v)
+        return
+    if case == "tau_past_stage":
+        tau, n, d = 4000, 300, 37
+        U, P, _, _ = _card_table(spec, n, d, 37, 300, 23)
+        rt = _wide_tau_table(spec, n, tau, 300, 23)
+        su = RankTableConfig(storage_dtype=spec).storage.pack_users(U)
+        if spec == "bf16":
+            for B in (1, 16):
+                cfg = user_scores.quant_launch_config(spec, False, B, d, tau)
+                assert cfg["thresholds_staged"] == 0
+        for B in (1, 3, 16):
+            for u in (su, U):
+                _assert_plain(u, P[:B].contiguous(), rt, spec)
+        return
+    n, d, tau, m = {"d37": (1000, 37, 37, 777), "tau777": (300, 24, 777, 777),
+                    "d1031": (300, 1031, 33, 300),
+                    "k7_tail_dups": (1000, 37, 37, 777)}[case]
+    U, P, rt, su = _card_table(spec, n, d, tau, m, 24)
+    for B in (1, 2, 3, 16, 19):
+        qs = P[:B].contiguous()
+        for u in (su, U):
+            full = _assert_plain(u, qs, rt, spec)
+            if case != "k7_tail_dups":
+                continue
+            for bn in (256, 100):
+                nblk = -(-n // bn)
+                for ids in ((nblk - 1, 0, 3, 3), (nblk - 1,), (2, 2, 1)):
+                    t = torch.tensor(ids, dtype=torch.int32, device="cuda")
+                    got = ops.bound_ranks_batched_pruned_stored(
+                        u, qs, rt, t, block_n=bn)
+                    ridx = pruning.row_indices(t, bn).long()
+                    past = ridx >= n
+                    for g_, f_ in zip(got, full):
+                        assert torch.equal(g_[:, ~past], f_[:, ridx[~past]])
+                        assert bool((g_[:, past] == float(rt.m + 2)).all())
