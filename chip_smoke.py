@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --digests SRC   # another tree's outputs, below
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -9,7 +10,9 @@ Phases, each fatal on failure (exit code 1, no result line):
   2. build K1-K7 from `src/repro_torch/kernels/csrc/*.cu` with nvcc, and
      print the launch K4/K5/K7 make at the main path's sizes (rows a
      tile of their shared-memory ring, stages, shared memory, blocks an
-     SM) with each instance's registers and local memory;
+     SM) with each instance's registers and local memory, and K3's (its
+     tile, ring stages, shared memory, blocks an SM, registers, local
+     memory) at d = 200 and at the depths phase 3 drives;
   3. each kernel against its plain PyTorch version on the card at ragged
      shapes (K4/K5 on integer inputs, where they must agree exactly, with
      stored and with raw f32 users; and on randn inputs, where query 0
@@ -18,15 +21,25 @@ Phases, each fatal on failure (exit code 1, no result line):
      cap (Qᵀ streamed, K3's user tile and K2's depth cut); K6/K7 against
      K1/K4/K5 on the same rows (bitwise, B in 1, 3, 16, 19, with a
      partial tail tile, duplicate ids and a single tile) and against
-     their plain versions; and the port's engine on the card against the
-     same engine on the CPU at a small size, at each spec;
+     their plain versions; K3 at its edges (d = 37, the last depth of its
+     resident user tile and the next, d = 1,031; views U[1:] and P[1:]
+     and rows 4 bytes off a 16-byte boundary; q in P and a random q) by
+     the explained-mismatch rule and bitwise on integer inputs; K4/K5/K7
+     on views at an offset (every staged array from row 1 on, d = 37),
+     bitwise the same call on copies, and on rows of d = 30,000 (raw f32
+     rows stream through the ring in chunks), bitwise their plain
+     versions on integer inputs;
+     and the port's engine on the card against the same engine on the
+     CPU at a small size, at each spec;
   4. the main path at the paper's Netflix size (n = 480,189 users,
      m = 17,770 items, d = 200; tau = 500, omega = 10, s = 64), on
      synthetic embeddings from a seed: Algorithm 1 build on the fused
      backend (K2), query_batch of 16 item queries and one query (K1),
      exact grading of those queries through K3 with the §5 accuracy and
      overall ratio, held against the dense backend. The launch counts are
-     zeroed just before and read just after; each kernel must have run;
+     zeroed just before and read just after; each kernel must have run.
+     Then the SHA-256 digest of what the 32 K3 launches gave (the 16 rank
+     vectors, then the 16 reverse_k_ranks (indices, ranks) pairs);
   4b. the storage tier on the same data: builds at bf16 and int8 with the
      f32 build's samples (K2), whose packs must equal `pack_table` /
      `pack_users` of the f32 arrays; query_batch and query on the fused
@@ -50,7 +63,16 @@ Phases, each fatal on failure (exit code 1, no result line):
      hot-cluster batch: skip rate and time beside the full scan;
   5. each kernel against its plain version on the main path's inputs,
      and their times beside the card's bound (K6/K7 on phase 4c (ii)'s
-     kept tiles, bounded over the kept rows).
+     kept tiles, bounded over the kept rows); beside K3, the time of
+     torch.matmul of the same (n, d) x (d, m) f32 product, TF32 off, in
+     user blocks of 32,768, summed over the blocks: the f32 rate the card
+     reaches at its power limit, not K3's function (it writes every
+     score and counts nothing), and not called by the port.
+
+`--digests SRC` runs only phase 4's data, K3 grading and the storage
+tier's tables with the package under SRC (another tree's `src`, built in
+that tree), and prints the K3 digest and the 16 K4/K5/K7 digests of
+phase 4b, for comparison with this tree's in one call.
 
 The explained-mismatch rule: a kernel and its plain version compute the
 same f32 dot products in different orders, so a score may differ by the
@@ -87,6 +109,7 @@ N, M, D = 480_189, 17_770, 200     # Netflix (src/repro/configs/paper_engine.py)
 TAU, OMEGA, S_PER = 500, 10, 64    # DEFAULT_TABLE
 K, C, B = 10, 2.0, 16
 D_WIDE = 1031                      # past every former shared-memory cap
+D_LONG = 30_000                    # raw f32 rows past two ring stages
 QUERY_ITEM = 42                    # the item examples/quickstart.py queries
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
@@ -413,6 +436,88 @@ def quant_configs(ops):
     return lines
 
 
+def k3_config_line(ops, d: int) -> str:
+    """K3's launch at depth d and its kernel's resources."""
+    c = ops.exact_rank.launch_config(d)
+    return (f"  K3 d={d}: {c['block_users']} users x {c['tile_items']} "
+            f"items a block, {c['stages']} stages of {c['stage_depth']} "
+            f"depths, user tile "
+            f"{'resident' if c['users_resident'] else 'staged'}, "
+            f"{c['smem_bytes']} B dynamic shared memory, "
+            f"{c['blocks_per_sm']} blocks an SM, {c['registers']} registers "
+            f"and {c['local_bytes']} B local a thread")
+
+
+def k3_edge_depths(ops) -> tuple:
+    """The depths phase 3 drives K3 at: odd (d = 37), the last depth
+    whose user tile stays resident, the next (staged), and d = 1,031."""
+    cap = max(d for d in range(1, D_WIDE)
+              if ops.exact_rank.launch_config(d)["users_resident"])
+    return (37, cap, cap + 1, D_WIDE)
+
+
+def offset_view(torch, x):
+    """The values of x (n, d) in a contiguous view that starts 4 bytes past
+    a 16-byte boundary: rows at any 4-byte address."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def k3_digest(truth, exact_idx, exact_rk) -> str:
+    """SHA-256 of the K3 grading's outputs: the rank vectors, then each
+    query's reverse_k_ranks (indices, ranks)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in truth:
+        h.update(t.cpu().numpy().tobytes())
+    for i, r in zip(exact_idx, exact_rk):
+        h.update(i.cpu().numpy().tobytes())
+        h.update(r.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def grade(torch, exact_mod, users, items, qs):
+    """The exact grading of phase 4: for each query its ranks and its
+    reverse_k_ranks, two K3 launches → (ranks, indices, their ranks)."""
+    truth, exact_idx, exact_rk = [], [], []
+    for b in range(qs.shape[0]):
+        idx, rk = exact_mod.reverse_k_ranks(users, items, qs[b], K)
+        exact_idx.append(idx)
+        exact_rk.append(rk)
+        truth.append(exact_mod.exact_ranks(users, items, qs[b]))
+    return truth, exact_idx, exact_rk
+
+
+def row_views(rt, su):
+    """rt and su with every per-user array a view from row 1 on (at an
+    offset from its allocation), and contiguous copies of those views."""
+    view = lambda t: None if t is None else t[1:]
+    copy = lambda t: None if t is None else t[1:].clone()
+    tables = [type(rt)(**{f: (rt.m if f == "m" else fn(getattr(rt, f)))
+                          for f in rt._fields}) for fn in (view, copy)]
+    users = [type(su)(*(fn(x) for x in su)) for fn in (view, copy)]
+    return tables, users
+
+
+def matmul_ms(torch, users, items, block: int = 32_768) -> float:
+    """Device time of torch.matmul of users (n, d) by items.T in user
+    blocks of `block` rows into one preallocated score buffer, summed
+    over the blocks: the f32 product alone (TF32 off), as a yardstick."""
+    buf = torch.empty((min(block, users.shape[0]), items.shape[0]),
+                      dtype=torch.float32, device=users.device)
+    it = items.T
+
+    def run():
+        for u0 in range(0, users.shape[0], block):
+            u = users[u0:u0 + block]
+            torch.matmul(u, it, out=buf[:u.shape[0]])
+    ms = time_ms(torch, run, reps=3)
+    del buf
+    return ms
+
+
 def device_breakdown(torch, fn, reps: int = 10, top: int = 5) -> str:
     """Where fn()'s device time goes, by torch.profiler over reps calls:
     the device time a call beside its CUDA-event time (their ratio is the
@@ -583,8 +688,38 @@ def step1_need(torch, Q, ops, users, q, rt):
 
 
 # ------------------------------------------------------------ main path
+def digests_of(torch, exact_mod, rt_mod, ReverseKRanksEngine,
+               RankTableConfig, synthetic_embeddings, ops, query_mod):
+    """Phase 4's K3 digest and phase 4b's 16 K4/K5/K7 digests, computed
+    by the imported package on the same inputs (`--digests SRC`)."""
+    dev = torch.device("cuda")
+    print(f"package: {ops.__file__}")
+    users, items, cfg, pos, w, qs = netflix_data(
+        torch, rt_mod, synthetic_embeddings, RankTableConfig, dev)
+    truth, exact_idx, exact_rk = grade(torch, exact_mod, users, items, qs)
+    print(f"  digest K3 ({B} rank vectors, {B} reverse_k_ranks (indices, "
+          f"ranks)): {k3_digest(truth, exact_idx, exact_rk)}")
+    del truth
+    tables = {}
+    for spec in ("bf16", "int8"):
+        eng = ReverseKRanksEngine.build(
+            users, items, RankTableConfig(tau=TAU, omega=OMEGA, s=S_PER,
+                                          storage_dtype=spec),
+            None, backend="fused", device=dev, positions=pos, weights=w)
+        tables[spec] = (eng.stored_users, eng.rank_table)
+    for line in quant_digests(torch, ops, query_mod, tables, users, qs):
+        print(line)
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    other = None
+    if sys.argv[1:2] == ["--digests"]:
+        if len(sys.argv) != 3:
+            print("usage: chip_smoke.py [--digests SRC]", file=sys.stderr)
+            return 2
+        other = str(Path(sys.argv[2]).resolve())
+        sys.path.insert(0, other)
     try:
         import torch
     except ImportError as e:
@@ -609,6 +744,10 @@ def main() -> int:
         print(f"FAIL: the port is not importable here ({e}); run from a "
               "checkout of the repository", file=sys.stderr)
         return 1
+    if other is not None:
+        digests_of(torch, exact_mod, rt_mod, ReverseKRanksEngine,
+                   RankTableConfig, synthetic_embeddings, ops, query_mod)
+        return 0
     try:
         kernels = run(torch, exact_mod, metrics, query_mod, rt_mod,
                       ReverseKRanksEngine, RankTableConfig,
@@ -657,6 +796,10 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
     print(f"K4/K5/K7 launches at d={D} tau={TAU}:")
     for line in quant_configs(ops):
         print(line)
+    print("K3 launches:")
+    k3_ds = k3_edge_depths(ops)
+    for d in (D,) + k3_ds:
+        print(k3_config_line(ops, d))
 
     # 3. kernels against plain versions at ragged shapes
     print("phase: kernels vs plain, ragged shapes")
@@ -866,6 +1009,100 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
                   f"tau={tau}, B in 1,3,16,19, ids {id_lists}: kept rows "
                   "bitwise the full scan's, rows past n at m+2")
 
+    # 3d. K3 at its edges: ragged n and m; an odd depth, the last depth of
+    # its resident user tile and the next, d = 1,031; views U[1:] and
+    # P[1:], and rows 4 bytes past a 16-byte boundary; q in P. Its own
+    # generator, as 3b's.
+    print("phase: K3 at its edges")
+    g4 = torch.Generator(device=dev)
+    g4.manual_seed(17)
+    for d in k3_ds:
+        cfg = ops.exact_rank.launch_config(d)
+        users = torch.randn((1000, d), generator=g4, device=dev)
+        items = torch.randn((777, d), generator=g4, device=dev)
+        iu = torch.randint(-4, 5, (1000, d), generator=g4, device=dev).float()
+        ii = torch.randint(-4, 5, (777, d), generator=g4, device=dev).float()
+        cases = lambda u, p: ((u, p, "whole"),
+                              (u[1:], p[1:], "views U[1:], P[1:]"),
+                              (offset_view(torch, u), offset_view(torch, p),
+                               "rows off 16 bytes"))
+        n_diff = 0
+        for u, p, what in cases(users, items):
+            for q in (p[11], torch.randn((d,), generator=g4, device=dev)):
+                n_diff += check_k3(torch, ops, ref, u, p, q.contiguous(),
+                                   f"d={d} {what}")[1]
+        for u, p, what in cases(iu, ii):
+            for q in (p[11], p[0] + 1.0):
+                check(torch.equal(ops.exact_ranks(u, p, q.contiguous()),
+                                  1 + ref.ref_exact_counts(u, p, q)),
+                      f"K3 d={d} {what}: integer inputs differ from the "
+                      "plain version")
+        print(f"  K3 d={d} (user tile "
+              f"{'resident' if cfg['users_resident'] else 'staged'}"
+              "): n=1000 m=777, whole, U[1:]/P[1:] views and rows "
+              f"off 16 bytes, q in P and random q: {n_diff} ranks differ "
+              "from plain, all explained; integer inputs bitwise the plain "
+              "version's")
+
+    # 3e. K4/K5/K7 on views at an offset and on long rows
+    print("phase: K4/K5/K7 on views at an offset and on long rows")
+    g5 = torch.Generator(device=dev)
+    g5.manual_seed(19)
+    iu = torch.randint(-4, 5, (300, 37), generator=g5, device=dev).float()
+    ii = torch.randint(-4, 5, (300, 37), generator=g5, device=dev).float()
+    ids = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev)
+    for spec in ("bf16", "int8"):
+        cfg = RankTableConfig(tau=37, omega=4, s=16, storage_dtype=spec)
+        rt = rt_mod.build_rank_table(iu, ii, cfg, g5)
+        (rt_v, rt_c), (su_v, su_c) = row_views(rt,
+                                               cfg.storage.pack_users(iu))
+        for u_v, u_c, what in ((su_v, su_c, "stored"),
+                               (iu[1:], iu[1:].clone(), "raw f32")):
+            for nb in (1, 3, 16, 19):
+                qs = ii[:nb].contiguous()
+                pruned = lambda u, q, r: \
+                    ops.bound_ranks_batched_pruned_stored(u, q, r, ids,
+                                                          block_n=64)
+                for fn in (ops.bound_ranks_batched_stored, pruned):
+                    got, want = fn(u_v, qs, rt_v), fn(u_c, qs, rt_c)
+                    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                          f"{spec} {what} B={nb}: a view at an offset differs "
+                          "from the same call on a copy")
+                check_quant_exact(torch, ops, ref, Q, u_v, qs, rt_v,
+                                  f"{spec} view {what} B={nb}")
+        print(f"  {spec} (K{4 if spec == 'bf16' else 5}, K7): n=299 d=37 "
+              "views from row 1 of every staged array, stored and raw f32 "
+              "rows, B in 1,3,16,19: bitwise the same call on copies; "
+              "bounds exact against plain")
+    iu = torch.randint(-4, 5, (70, D_LONG), generator=g5, device=dev).float()
+    ii = torch.randint(-4, 5, (300, D_LONG), generator=g5, device=dev).float()
+    for spec in ("bf16", "int8"):
+        cfg = RankTableConfig(tau=33, omega=4, s=16, storage_dtype=spec)
+        rt = rt_mod.build_rank_table(iu, ii, cfg, g5)
+        chunks = []
+        for u, raw, what in ((cfg.storage.pack_users(iu), False, "stored"),
+                             (iu, True, "raw f32")):
+            chunks.append(ops.user_scores.quant_launch_config(
+                spec, raw, B, D_LONG, 33)["row_chunk"])
+            for nb in (1, 16):
+                qs = ii[:nb].contiguous()
+                full = check_quant_exact(torch, ops, ref, Q, u, qs, rt,
+                                         f"{spec} d={D_LONG} {what} B={nb}")
+                got = ops.bound_ranks_batched_pruned_stored(u, qs, rt, ids,
+                                                            block_n=64)
+                ridx = pruning.row_indices(ids, 64).long()
+                live = ridx < 70
+                check(all(torch.equal(a[:, live], b.T[:, ridx[live]])
+                          for a, b in zip(got, full)),
+                      f"{spec} d={D_LONG} {what}: K7 differs from the full "
+                      "scan on its kept rows")
+        check(chunks[1] < D_LONG, f"{spec}: raw f32 rows at d={D_LONG} "
+              "are not streamed in chunks")
+        print(f"  {spec}: n=70 d={D_LONG} tau=33, B in 1,16, values of a row "
+              f"a stage: stored {chunks[0]}, raw f32 {chunks[1]}: bounds "
+              "exact against plain, est within 1e-5, K7 bitwise the full "
+              "scan on its kept rows")
+
     print("phase: engine on the card vs the same engine on the CPU")
     users, items = synthetic_embeddings(3, 2048, 1024, 32, device=dev)
     cfg = RankTableConfig(tau=64)
@@ -925,12 +1162,8 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
     res1 = eng.query(items[QUERY_ITEM], K, C)
     torch.cuda.synchronize()
     q1_ms = (time.perf_counter() - t0) * 1e3
-    truth, exact_idx = [], []
     t0 = time.perf_counter()
-    for b in range(B):
-        idx, _ = exact_mod.reverse_k_ranks(users, items, qs[b], K)
-        exact_idx.append(idx)
-        truth.append(exact_mod.exact_ranks(users, items, qs[b]))
+    truth, exact_idx, exact_rk = grade(torch, exact_mod, users, items, qs)
     torch.cuda.synchronize()
     exact_s = time.perf_counter() - t0
     counts = dict(ops.LAUNCHES)
@@ -945,6 +1178,8 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
           f"({2 * B} K3 launches: ranks + reverse_k_ranks)")
     print(f"  memory_bytes {mem} ({mem / 1e9:.3f} GB); peak allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(f"  digest K3 ({B} rank vectors, {B} reverse_k_ranks (indices, "
+          f"ranks)): {k3_digest(truth, exact_idx, exact_rk)}")
 
     check(res.indices.shape == (B, K), "query_batch indices shape")
     for f in ("est_rank", "r_lo", "r_up", "R_lo_k", "R_up_k"):
@@ -1357,6 +1592,13 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
     row("k3_exact_ranks", "src/repro/kernels/exact_rank.py:25",
         counts["k3_exact_ranks"], max(errs), ms, pms,
         4 * (N * D + M * D + D + N), 2 * N * M * D, src + "exact_rank.cu")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    mm = matmul_ms(torch, users, items)
+    print(f"  f32 product alone, not K3's function: torch.matmul of the "
+          f"({N}, {D}) x ({D}, {M}) product, TF32 off, in user blocks of "
+          f"32,768, scores written, summed over the blocks: {mm:.3f} ms "
+          f"({2 * N * M * D / mm / 1e9:.1f} TFLOP/s; K3 "
+          f"{2 * N * M * D / ms / 1e9:.1f} TFLOP/s)")
 
     probes = math.ceil(math.log2(TAU))
     for spec, name, line in (("bf16", "k4_bound_ranks_bf16", 295),

@@ -50,7 +50,9 @@ SIGNATURES = {
                                        I, P),
         "quant_launch_config": (I, I, I, I, I, I, P)},
     "table_build": {"k2_table_build": (P, P, P, P, P, I, I, I, I, P)},
-    "exact_rank": {"k3_exact_ranks": (P, P, P, P, I, I, I, P)},
+    "exact_rank": {"k3_exact_ranks": (P, P, P, P, P, I, I, I, P),
+                   "k3_workspace_floats": (I, I, P),
+                   "k3_launch_config": (I, P)},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -41,10 +41,11 @@
 // tile's slice of each per-user f32 vector (K4: slack; K5: scale, slack
 // and the five table affines). The bytes of an array that do not fill a
 // 16-byte-aligned chunk (a ragged tail, or a start off 16 bytes, as
-// under a row map) go by ordinary loads of the producer's lanes; every
-// array lands at its global address modulo 16, so its 16-byte-aligned
-// middle lands aligned. Consumers release a stage on a second mbarrier
-// once every warp has taken its rows.
+// under a row map or in a view at any offset) go by ordinary loads of the
+// producer's lanes; every range lands at its global address modulo 16,
+// so its 16-byte-aligned middle lands aligned, and consumers find it from
+// that address (ring.cuh, landed_at). Consumers release a stage on a
+// second mbarrier once every warp has taken its rows.
 //
 // A consumer warp takes rows warp, warp + 8, ... of each tile, two at a
 // time at 8 and 16 queries. Each row's score is K1's (step1_common.cuh):
@@ -76,7 +77,14 @@
 // do not fit even so (large tau), they are searched in global memory, 512
 // values at a time staged in the warp's scratch.
 // Rows longer than two stages of one row each can hold (d past about
-// 25,000 at f32) are refused (cudaErrorInvalidValue).
+// 25,000 at f32, 50,000 at bf16) stream through the ring in chunks: a tile
+// is then eight rows, one a consumer warp, and takes nch consecutive
+// stages of kc values a row (kc a multiple of 256, as many as two stages
+// of one block an SM hold); a warp's sums carry over the chunks, each lane
+// keeping its k-set and fmaf order, so every score is the whole-row
+// layout's. The per-user vectors ride the tile's last stage, and K4's
+// thresholds rows are searched in global memory. Chunked and whole-row
+// layouts are separate instances of the kernel.
 //
 // K7 (k7_bound_ranks_bf16_masked, k7_bound_ranks_int8_masked) is this
 // kernel behind K6's row map. It replaces the TPU kernel
@@ -93,6 +101,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "ring.cuh"
 #include "step1_common.cuh"
 
 namespace {
@@ -210,101 +219,10 @@ __device__ __forceinline__ int count_chunked(const __nv_bfloat16* t, int tau,
   return idx;
 }
 
-// ------------------------------------------------ barriers and copies
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed. A
-// wait takes at most a tile's work; one that outlasts 2^26 polls (seconds)
-// traps, so that a fault in the ring ends the launch with an error rather
-// than holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0, polls = 0;
-  do {
-    if (++polls == (1u << 26)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Order this thread's generic-proxy accesses to shared memory before the
-// bulk copies that follow
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
-                                         unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
+// ------------------------------------------------------------ barriers
 // The consumer warps only (the producer warp never joins)
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
-}
-
-// Bytes [src, src + len) of global memory land at region + (src & 15):
-// the head and tail outside the 16-byte-aligned middle by the lanes'
-// ordinary loads here; returns the middle's bytes, which copy_bulk moves
-__device__ __forceinline__ unsigned copy_edges(unsigned char* region,
-                                               const unsigned char* src,
-                                               unsigned len, int lane) {
-  const uintptr_t s = reinterpret_cast<uintptr_t>(src);
-  unsigned char* dst = region + (s & 15u);
-  const uintptr_t lo = (s + 15u) & ~uintptr_t(15);
-  const uintptr_t hi = (s + len) & ~uintptr_t(15);
-  const bool bulk = hi > lo;
-  const unsigned head = bulk ? (unsigned)(lo - s) : len;
-  const unsigned tail = bulk ? (unsigned)(hi - s) : len;
-  for (unsigned i = lane; i < head; i += 32) dst[i] = src[i];
-  for (unsigned i = tail + lane; i < len; i += 32) dst[i] = src[i];
-  return bulk ? (unsigned)(hi - lo) : 0u;
-}
-
-__device__ __forceinline__ void copy_bulk(unsigned char* region,
-                                          const unsigned char* src,
-                                          unsigned len, uint64_t* bar) {
-  const uintptr_t s = reinterpret_cast<uintptr_t>(src);
-  const uintptr_t lo = (s + 15u) & ~uintptr_t(15);
-  const uintptr_t hi = (s + len) & ~uintptr_t(15);
-  if (hi > lo)
-    bulk_g2s(region + (s & 15u) + (lo - s),
-             reinterpret_cast<const void*>(lo), (unsigned)(hi - lo), bar);
 }
 
 // ------------------------------------------------------------- layout
@@ -312,11 +230,19 @@ __device__ __forceinline__ void copy_bulk(unsigned char* region,
 // streamed chunk), K4's per-warp search scratch where its thresholds
 // rows are not staged, then S stages of one tile each: a 16-byte header
 // and one region per staged array, each 16 bytes longer than T rows.
+// Rows too long for two stages of one row each take the chunked layout:
+// a tile is kWarps rows, one a consumer warp, and streams through nch
+// consecutive stages, each holding kc values of every row (a region of
+// rcap bytes a row); the per-user vectors ride the tile's last stage and
+// K4's thresholds rows stay in global memory.
 struct Layout {
   int T;       // rows a tile holds
   int S;       // stages of the ring
   int thr;     // K4's thresholds rows staged (1) or searched in place
   int qrows;   // rows of Qᵀ in shared memory at once
+  int kc;      // values of each row a stage holds (d: whole rows)
+  int nch;     // stages a tile takes (1: whole rows)
+  unsigned rcap;  // bytes of a row's region in the chunked layout, else 0
   unsigned q_off, ts_off, ring_off, stage_bytes;
   unsigned rows_off, thr_off, vec_off, vec_cap;
   unsigned total;
@@ -326,42 +252,73 @@ inline unsigned align16(size_t x) {
   return (unsigned)((x + 15) & ~size_t(15));
 }
 
+// The rest of the layout once T, thr, the rows' region and the fixed part
+// are chosen; false if two stages do not fit the budget
+bool fill_layout(Layout& L, size_t budget, size_t fixed, size_t q_bytes,
+                 int T, int thr, unsigned rows_cap, int tau, int nvec) {
+  const unsigned thr_cap = thr ? align16((size_t)T * 2 * tau) + 16 : 0;
+  const unsigned vec_cap = align16(4 * (size_t)T) + 16;
+  const size_t stage = 16 + (size_t)rows_cap + thr_cap + (size_t)nvec * vec_cap;
+  if (fixed + 2 * stage > budget) return false;
+  L.T = T;
+  L.S = (int)((budget - fixed) / stage);
+  if (L.S > kMaxStages) L.S = kMaxStages;
+  L.thr = thr;
+  L.q_off = kBarBytes;
+  L.ts_off = (unsigned)(kBarBytes + q_bytes);
+  L.ring_off = (unsigned)fixed;
+  L.stage_bytes = (unsigned)stage;
+  L.rows_off = 16;
+  L.thr_off = 16 + rows_cap;
+  L.vec_off = 16 + rows_cap + thr_cap;
+  L.vec_cap = vec_cap;
+  L.total = (unsigned)(fixed + L.S * stage);
+  return true;
+}
+
 bool plan(Layout& L, int kind, size_t elem, int nb, int d, int tau) {
   const size_t stride = nb >= 8 ? nb + 4 : nb;
   const int qrows = (size_t)d * stride * 4 <= kQWhole ? d : kQChunk;
   const int nvec = kind == kBf16 ? 1 : 7;
   const int tiles[] = {64, 32, 16, 8, 4, 2, 1};
   const size_t budgets[] = {share(min_blocks(nb)), share(2), kBudgetOne};
+  const size_t q_bytes = align16((size_t)qrows * stride * 4);
+  L.qrows = qrows;
   for (const size_t budget : budgets) {
     for (int thr = kind == kBf16 ? 1 : 0; thr >= 0; --thr) {
+      const size_t ts_bytes =
+          kind == kBf16 && !thr && nb > 1 ? (size_t)kWarps * kTile * 4 : 0;
+      const size_t fixed = kBarBytes + q_bytes + ts_bytes;
       for (const int T : tiles) {
         if (T < 8 && budget != kBudgetOne) break;
         const unsigned rows_cap = align16((size_t)T * d * elem) + 16;
-        const unsigned thr_cap = thr ? align16((size_t)T * 2 * tau) + 16 : 0;
-        const unsigned vec_cap = align16(4 * (size_t)T) + 16;
-        const size_t stage = 16 + rows_cap + thr_cap + (size_t)nvec * vec_cap;
-        const size_t q_bytes = align16((size_t)qrows * stride * 4);
-        const size_t ts_bytes =
-            kind == kBf16 && !thr && nb > 1 ? (size_t)kWarps * kTile * 4 : 0;
-        const size_t fixed = kBarBytes + q_bytes + ts_bytes;
-        if (fixed + 2 * stage > budget) continue;
-        L.T = T;
-        L.S = (int)((budget - fixed) / stage);
-        if (L.S > kMaxStages) L.S = kMaxStages;
-        L.thr = thr;
-        L.qrows = qrows;
-        L.q_off = kBarBytes;
-        L.ts_off = (unsigned)(kBarBytes + q_bytes);
-        L.ring_off = (unsigned)fixed;
-        L.stage_bytes = (unsigned)stage;
-        L.rows_off = 16;
-        L.thr_off = 16 + rows_cap;
-        L.vec_off = 16 + rows_cap + thr_cap;
-        L.vec_cap = vec_cap;
-        L.total = (unsigned)(fixed + L.S * stage);
+        if (!fill_layout(L, budget, fixed, q_bytes, T, thr, rows_cap, tau,
+                         nvec))
+          continue;
+        L.kc = d;
+        L.nch = 1;
+        L.rcap = 0;
         return true;
       }
     }
+  }
+  // the chunked layout: the largest chunk, a multiple of kQChunk values
+  // (so of 32: each lane keeps its k-set and fmaf order), of which two
+  // stages fit one block an SM; K4's thresholds rows are searched in
+  // global memory (its chunked instances are built without THR)
+  const size_t ts_bytes =
+      kind == kBf16 && nb > 1 ? (size_t)kWarps * kTile * 4 : 0;
+  const size_t fixed = kBarBytes + q_bytes + ts_bytes;
+  for (int kc = (d + kQChunk - 1) / kQChunk * kQChunk; kc >= kQChunk;
+       kc -= kQChunk) {
+    const unsigned rcap = align16((size_t)kc * elem) + 16;
+    if (!fill_layout(L, kBudgetOne, fixed, q_bytes, kWarps, 0,
+                     kWarps * rcap, tau, nvec))
+      continue;
+    L.kc = kc;
+    L.nch = (d + kc - 1) / kc;
+    L.rcap = rcap;
+    return true;
   }
   return false;
 }
@@ -406,18 +363,15 @@ __device__ __forceinline__ const float* vec_ptr(const Args& a, int v) {
   }
 }
 
-// Staged array k: its base, bytes per row and region in a stage
-template <int KIND, typename RowT, bool THR>
+// Staged array k (1.. after the rows): its base, bytes per row and
+// region in a stage
+template <int KIND, bool THR>
 __device__ __forceinline__ void staged_array(const Args& a, int k,
                                              const unsigned char*& base,
                                              unsigned& row_bytes,
                                              unsigned& region) {
   constexpr int kV0 = KIND == kBf16 && THR ? 2 : 1;
-  if (k == 0) {
-    base = static_cast<const unsigned char*>(a.U);
-    row_bytes = a.d * sizeof(RowT);
-    region = a.L.rows_off;
-  } else if (k < kV0) {
+  if (k < kV0) {
     base = reinterpret_cast<const unsigned char*>(a.thr);
     row_bytes = 2 * a.tau;
     region = a.L.thr_off;
@@ -428,13 +382,27 @@ __device__ __forceinline__ void staged_array(const Args& a, int k,
   }
 }
 
-// Where global row g0 of an array (row_bytes per row) lands in a stage:
-// at its address modulo 16, which with a 16-byte-aligned base (check())
-// is its offset modulo 16
-__device__ __forceinline__ const unsigned char* staged_at(
-    const unsigned char* stage, unsigned region, int g0,
-    unsigned row_bytes) {
-  return stage + region + (((size_t)g0 * row_bytes) & 15u);
+// Piece p of the rows a stage of a tile (global rows g0.., `live` of them)
+// holds, for values [k0, k1) of each row: whole rows are one piece (the
+// tile's rows, contiguous); the chunked layout copies each live row's
+// chunk into its own region. Every piece lands at its global address
+// modulo 16 (copy_edges), whatever the base of U.
+template <typename RowT, bool CHUNKED>
+__device__ __forceinline__ void row_piece(const Args& a, int g0, int live,
+                                          int p, int k0, int k1,
+                                          const unsigned char*& src,
+                                          unsigned& len, unsigned& region) {
+  const size_t row = (size_t)a.d * sizeof(RowT);
+  const unsigned char* U = static_cast<const unsigned char*>(a.U);
+  if constexpr (!CHUNKED) {
+    src = U + (size_t)g0 * row;
+    len = (unsigned)(live * row);
+    region = a.L.rows_off;
+  } else {
+    src = U + (size_t)(g0 + p) * row + (size_t)k0 * sizeof(RowT);
+    len = (unsigned)((k1 - k0) * sizeof(RowT));
+    region = a.L.rows_off + p * a.L.rcap;
+  }
 }
 
 // A tile: compact rows [c0, c0 + cnt), read from global rows g0.. of
@@ -623,8 +591,12 @@ __device__ __forceinline__ void dot_rows2(float (&acc0)[NB],
 
 // ------------------------------------------------------------- kernel
 // MASKED is a.ids != nullptr; THR (K4) is a.L.thr: the thresholds rows
-// ride the ring, else they are searched in global memory.
-template <int NB, int KIND, typename RowT, bool MASKED, bool THR>
+// ride the ring, else they are searched in global memory; CHUNKED is
+// a.L.nch > 1: rows stream through the ring in chunks (never with THR).
+// Whole-row and chunked layouts are separate instances, so that a
+// whole-row instance keeps its sums live only while a row is summed.
+template <int NB, int KIND, typename RowT, bool MASKED, bool THR,
+          bool CHUNKED>
 __global__ void __launch_bounds__(kThreads, min_blocks(NB))
 quant_bound_ranks_kernel(const __grid_constant__ Args a) {
   constexpr int kShift = 5 - log2_nb<NB>();  // lanes per query: 1 << kShift
@@ -652,38 +624,66 @@ quant_bound_ranks_kernel(const __grid_constant__ Args a) {
   __syncthreads();
 
   if (warp == kWarps) {
-    // the producer: tile i of this block into stage i % S
-    for (int t = blockIdx.x, i = 0; t < a.ntiles; t += gridDim.x, ++i) {
-      const int s = i % S;
-      mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
+    // the producer: fill i of this block into stage i % S, a tile taking
+    // one fill with whole rows, a.L.nch in the chunked layout
+    int i = 0;
+    auto produce = [&](int t) {
       const TileHdr h = tile_of<MASKED>(a, t);
-      unsigned char* st = ring + (size_t)s * a.L.stage_bytes;
-      if (lane == 0) *reinterpret_cast<TileHdr*>(st) = h;
-      unsigned tx = 0;
-#pragma unroll
-      for (int k = 0; k < kArrays; ++k) {
-        const unsigned char* base;
-        unsigned rb, region;
-        staged_array<KIND, RowT, THR>(a, k, base, rb, region);
-        tx += copy_edges(st + region, base + (size_t)h.g0 * rb, h.live * rb,
-                         lane);
-      }
-      fence_proxy_async();
-      __syncwarp();
-      if (lane == 0) {
-        mbar_arrive_expect_tx(&full[s], tx);
-#pragma unroll
-        for (int k = 0; k < kArrays; ++k) {
-          const unsigned char* base;
-          unsigned rb, region;
-          staged_array<KIND, RowT, THR>(a, k, base, rb, region);
-          copy_bulk(st + region, base + (size_t)h.g0 * rb, h.live * rb,
-                    &full[s]);
+      const int stages = CHUNKED ? a.L.nch : 1;
+      const int pieces = CHUNKED ? h.live : 1;
+      for (int c = 0; c < stages; ++c, ++i) {
+        const int s = i % S;
+        const int k0 = CHUNKED ? c * a.L.kc : 0;
+        const int k1 = CHUNKED ? min(d, k0 + a.L.kc) : d;
+        const bool last = c == stages - 1;  // the rows' other arrays ride it
+        mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
+        unsigned char* st = ring + (size_t)s * a.L.stage_bytes;
+        if (lane == 0) *reinterpret_cast<TileHdr*>(st) = h;
+        unsigned tx = 0;
+        for (int p = 0; p < pieces; ++p) {
+          const unsigned char* src;
+          unsigned len, region;
+          row_piece<RowT, CHUNKED>(a, h.g0, h.live, p, k0, k1, src, len,
+                                    region);
+          tx += copy_edges(st + region, src, len, lane);
         }
-      } else {
-        mbar_arrive(&full[s]);
+        if (last) {
+#pragma unroll
+          for (int k = 1; k < kArrays; ++k) {
+            const unsigned char* base;
+            unsigned rb, region;
+            staged_array<KIND, THR>(a, k, base, rb, region);
+            tx += copy_edges(st + region, base + (size_t)h.g0 * rb,
+                             h.live * rb, lane);
+          }
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], tx);
+          for (int p = 0; p < pieces; ++p) {
+            const unsigned char* src;
+            unsigned len, region;
+            row_piece<RowT, CHUNKED>(a, h.g0, h.live, p, k0, k1, src, len,
+                                      region);
+            copy_bulk(st + region, src, len, &full[s]);
+          }
+          if (last) {
+#pragma unroll
+            for (int k = 1; k < kArrays; ++k) {
+              const unsigned char* base;
+              unsigned rb, region;
+              staged_array<KIND, THR>(a, k, base, rb, region);
+              copy_bulk(st + region, base + (size_t)h.g0 * rb, h.live * rb,
+                        &full[s]);
+            }
+          }
+        } else {
+          mbar_arrive(&full[s]);
+        }
       }
-    }
+    };
+    for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) produce(t);
     return;
   }
 
@@ -695,7 +695,6 @@ quant_bound_ranks_kernel(const __grid_constant__ Args a) {
   const float fin_qn = fin_b < a.B ? a.qnorm1[fin_b] : 0.f;
   float* ts = reinterpret_cast<float*>(smem + a.L.ts_off) + warp * kTile;
   const int iters = (a.L.T + kWarps - 1) / kWarps;
-  const unsigned row_bytes = d * sizeof(RowT);
   Fin f{};
   f.j = -1;
   int slot = 0;          // the batch's next row, the same in every lane
@@ -704,167 +703,197 @@ quant_bound_ranks_kernel(const __grid_constant__ Args a) {
     if (fin_g < count && fin_b < a.B) finish<KIND>(a, f, fin_b);
   };
 
-  for (int t = blockIdx.x, i = 0; t < a.ntiles; t += gridDim.x, ++i) {
-    const int s = i % S;
-    mbar_wait(&full[s], (i / S) & 1);
-    const unsigned char* st = ring + (size_t)s * a.L.stage_bytes;
-    const TileHdr h = *reinterpret_cast<const TileHdr*>(st);
-    const RowT* rows = reinterpret_cast<const RowT*>(
-        staged_at(st, a.L.rows_off, h.g0, row_bytes));
-    const __nv_bfloat16* thr_s = nullptr;
-    if constexpr (KIND == kBf16 && THR)
-      thr_s = reinterpret_cast<const __nv_bfloat16*>(
-          staged_at(st, a.L.thr_off, h.g0, 2 * tau));
-    // per-user vector v (vec_ptr's order) of row j
-    const unsigned char* vecs = staged_at(st, a.L.vec_off, h.g0, 4);
-    auto vec = [&](int v, int j) {
-      return reinterpret_cast<const float*>(vecs + v * a.L.vec_cap)[j];
-    };
-    auto thr_row = [&](int j) {
-      return THR ? thr_s + (size_t)j * tau : a.thr + (size_t)(h.g0 + j) * tau;
-    };
-    // the values of this tile's rows that a batch finishes with, read by
-    // every lane that took one of them at once
-    auto harvest = [&]() {
-      if (f.j < 0) return;
-      if constexpr (KIND == kBf16) {
-        const __nv_bfloat16* tr = thr_row(f.j);
-        f.e_lo = __bfloat162float(tr[0]);
-        f.e_hi = __bfloat162float(tr[tau - 1]);
-      } else {
-        f.s = f.s * vec(1, f.j);
-        f.slack = vec(0, f.j) * fin_qn;
-        f.sc_t = vec(2, f.j);
-        f.off_t = vec(3, f.j);
-        f.dev = vec(4, f.j) + a.c1;
-        f.sc_b = vec(5, f.j);
-        f.off_b = vec(6, f.j);
-      }
-      f.j = -1;
-    };
-
-    // what follows a row's sums: the halving, K4's searches, and the
-    // row's turn in the warp's batch
-    auto row_step = [&](int j, float (&acc)[NB]) {
-      halve<NB, NB, 16>(acc, lane);
-      const float sc = acc[0];  // u·q_{my_b} over the stored row
-      // the first lane of query fin_b holds its values (every lane at NB 1)
-      const int src = fin_b << kShift;
-      const float sv = NB == 1 ? sc : __shfl_sync(kFull, sc, src);
-      int hv = 0, lv = 0;
-      float tuv = 0.f, tlv = 0.f;
-      if constexpr (KIND == kBf16) {
-        const __nv_bfloat16* tr = thr_row(j);
-        const float slack = vec(0, j) * qn;
-        const float s_hi = round_bf16(sc + slack);
-        const float s_lo = round_bf16(sc - slack);
-        int idx_hi, idx_lo;
-        if constexpr (NB == 1) {
-          idx_hi = count_probed<false>(tr, tau, s_hi, lane);
-          idx_lo = count_probed<true>(tr, tau, s_lo, lane);
+  const RowT* U = static_cast<const RowT*>(a.U);
+  int i = 0;  // fills taken, one a stage
+  // One tile, its stages in turn. The whole-row layout is one stage a tile
+  // and sums each row from 0.0f while it is taken; the chunked layout
+  // carries a warp's one row's sums over the tile's stages.
+  auto consume = [&]() {
+    const int stages = CHUNKED ? a.L.nch : 1;
+    float sums[kR][NB];
+    for (int c = 0; c < stages; ++c, ++i) {
+      const int s = i % S;
+      mbar_wait(&full[s], (i / S) & 1);
+      const int k0 = CHUNKED ? c * a.L.kc : 0;
+      const int k1 = CHUNKED ? min(d, k0 + a.L.kc) : d;
+      const bool last = c == stages - 1;
+      const unsigned char* st = ring + (size_t)s * a.L.stage_bytes;
+      const TileHdr h = *reinterpret_cast<const TileHdr*>(st);
+      // row j of the tile, indexed by k: every staged range begins at its
+      // global address modulo 16 in its region (copy_edges)
+      auto row_at = [&](int j) {
+        if constexpr (CHUNKED)
+          return reinterpret_cast<const RowT*>(landed_at(
+                     st + a.L.rows_off + j * a.L.rcap,
+                     U + (size_t)(h.g0 + j) * d + k0)) - k0;
+        else
+          return reinterpret_cast<const RowT*>(landed_at(
+                     st + a.L.rows_off, U + (size_t)h.g0 * d)) + (size_t)j * d;
+      };
+      const __nv_bfloat16* thr_s = nullptr;
+      if constexpr (KIND == kBf16 && THR)
+        thr_s = reinterpret_cast<const __nv_bfloat16*>(landed_at(
+            st + a.L.thr_off, a.thr + (size_t)h.g0 * tau));
+      // per-user vector v (vec_ptr's order) of row j
+      auto vec = [&](int v, int j) {
+        return reinterpret_cast<const float*>(landed_at(
+            st + a.L.vec_off + v * a.L.vec_cap, vec_ptr(a, v) + h.g0))[j];
+      };
+      auto thr_row = [&](int j) {
+        return THR ? thr_s + (size_t)j * tau
+                   : a.thr + (size_t)(h.g0 + j) * tau;
+      };
+      // the values of this tile's rows that a batch finishes with, read by
+      // every lane that took one of them at once
+      auto harvest = [&]() {
+        if (f.j < 0) return;
+        if constexpr (KIND == kBf16) {
+          const __nv_bfloat16* tr = thr_row(f.j);
+          f.e_lo = __bfloat162float(tr[0]);
+          f.e_hi = __bfloat162float(tr[tau - 1]);
         } else {
-          // each query has an even number of lanes: even lanes count
-          // t <= s_hi, odd lanes t < s_lo, and the query's first lane
-          // (even) takes idx_lo from its odd neighbour
-          const bool hi_lane = (lane & 1) == 0;
-          const float key = hi_lane ? s_hi : s_lo;
-          int idx;
-          if constexpr (THR)
-            idx = count_search(tr, tau, key, hi_lane);
-          else
-            idx = count_chunked(tr, tau, key, hi_lane, ts, lane);
-          idx_hi = idx;
-          idx_lo = __shfl_down_sync(kFull, idx, 1);
+          f.s = f.s * vec(1, f.j);
+          f.slack = vec(0, f.j) * fin_qn;
+          f.sc_t = vec(2, f.j);
+          f.off_t = vec(3, f.j);
+          f.dev = vec(4, f.j) + a.c1;
+          f.sc_b = vec(5, f.j);
+          f.off_b = vec(6, f.j);
         }
-        // the thresholds around idx_hi, read where the counts are
-        const float tu =
-            __bfloat162float(tr[min(max(idx_hi - 1, 0), tau - 1)]);
-        const float tl = __bfloat162float(tr[min(idx_hi, tau - 1)]);
-        if constexpr (NB == 1) {
-          hv = idx_hi;
-          lv = idx_lo;
-          tuv = tu;
-          tlv = tl;
-        } else {
-          hv = __shfl_sync(kFull, idx_hi, src);
-          lv = __shfl_sync(kFull, idx_lo, src);
-          tuv = __shfl_sync(kFull, tu, src);
-          tlv = __shfl_sync(kFull, tl, src);
-        }
-      }
-      // the previous batch finishes before its lanes take this row
-      if (pending) {
-        finish_batch(kG);
-        pending = false;
-      }
-      if (fin_g == slot) {
-        f.row = h.c0 + j;
-        f.user = h.g0 + j;
-        f.j = j;
-        f.s = sv;
-        f.hi = hv;
-        f.lo = lv;
-        f.thr_up = tuv;
-        f.thr_lo = tlv;
-      }
-      if (++slot == kG) {
-        slot = 0;
-        harvest();
-        prepare<KIND>(a, f);
-        pending = true;
-      }
-    };
+        f.j = -1;
+      };
 
-    // every warp runs the same iterations, so that a streamed Qᵀ can
-    // synchronise the consumers; a warp without a row only stages. A
-    // warp takes kR rows at once, which share each Qᵀ value it loads.
-    for (int it = 0; it < iters; it += kR) {
-      int jr[kR];
-      bool live[kR];  // the same in every lane; live[1] implies live[0]
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        jr[r] = warp + (it + r) * kWarps;
-        live[r] = it + r < iters && jr[r] < h.live;
-        if (MASKED && !live[r] && it + r < iters && jr[r] < h.cnt &&
-            lane < a.B) {  // past n: m + 2
-          const size_t o = (size_t)(h.c0 + jr[r]) * a.ldo + lane;
-          a.r_lo[o] = a.r_up[o] = a.est[o] = a.m_plus_1 + 1.f;
-        }
-      }
-      float acc[kR][NB];
-#pragma unroll
-      for (int r = 0; r < kR; ++r)
-#pragma unroll
-        for (int b = 0; b < NB; ++b) acc[r][b] = 0.f;
-      auto dot = [&](int q0, int q1) {
-        const RowT* u0 = rows + (size_t)jr[0] * d;
-        if constexpr (kR == 2) {
-          if (live[1]) {
-            dot_rows2<NB>(acc[0], acc[1], u0, rows + (size_t)jr[1] * d, qs,
-                          q0, q1, lane);
-            return;
+      // what follows a row's sums: the halving, K4's searches, and the
+      // row's turn in the warp's batch
+      auto row_step = [&](int j, float (&acc)[NB]) {
+        halve<NB, NB, 16>(acc, lane);
+        const float sc = acc[0];  // u·q_{my_b} over the stored row
+        // the first lane of query fin_b holds its values (every lane at NB 1)
+        const int src = fin_b << kShift;
+        const float sv = NB == 1 ? sc : __shfl_sync(kFull, sc, src);
+        int hv = 0, lv = 0;
+        float tuv = 0.f, tlv = 0.f;
+        if constexpr (KIND == kBf16) {
+          const __nv_bfloat16* tr = thr_row(j);
+          const float slack = vec(0, j) * qn;
+          const float s_hi = round_bf16(sc + slack);
+          const float s_lo = round_bf16(sc - slack);
+          int idx_hi, idx_lo;
+          if constexpr (NB == 1) {
+            idx_hi = count_probed<false>(tr, tau, s_hi, lane);
+            idx_lo = count_probed<true>(tr, tau, s_lo, lane);
+          } else {
+            // each query has an even number of lanes: even lanes count
+            // t <= s_hi, odd lanes t < s_lo, and the query's first lane
+            // (even) takes idx_lo from its odd neighbour
+            const bool hi_lane = (lane & 1) == 0;
+            const float key = hi_lane ? s_hi : s_lo;
+            int idx;
+            if constexpr (THR)
+              idx = count_search(tr, tau, key, hi_lane);
+            else
+              idx = count_chunked(tr, tau, key, hi_lane, ts, lane);
+            idx_hi = idx;
+            idx_lo = __shfl_down_sync(kFull, idx, 1);
+          }
+          // the thresholds around idx_hi, read where the counts are
+          const float tu =
+              __bfloat162float(tr[min(max(idx_hi - 1, 0), tau - 1)]);
+          const float tl = __bfloat162float(tr[min(idx_hi, tau - 1)]);
+          if constexpr (NB == 1) {
+            hv = idx_hi;
+            lv = idx_lo;
+            tuv = tu;
+            tlv = tl;
+          } else {
+            hv = __shfl_sync(kFull, idx_hi, src);
+            lv = __shfl_sync(kFull, idx_lo, src);
+            tuv = __shfl_sync(kFull, tu, src);
+            tlv = __shfl_sync(kFull, tl, src);
           }
         }
-        if (live[0]) dot_chunk<NB>(acc[0], u0, qs, q0, q1, lane);
-      };
-      if (stream) {
-        for (int q0 = 0; q0 < d; q0 += a.L.qrows) {
-          const int q1 = min(d, q0 + a.L.qrows);
-          consumer_sync();  // every warp is done with the previous chunk
-          stage_q<NB>(qs, a.Q, a.B, d, q0, q1 - q0, threadIdx.x, kConsumers);
-          consumer_sync();
-          dot(q0, q1);
+        // the previous batch finishes before its lanes take this row
+        if (pending) {
+          finish_batch(kG);
+          pending = false;
         }
-      } else {
-        dot(0, d);
-      }
+        if (fin_g == slot) {
+          f.row = h.c0 + j;
+          f.user = h.g0 + j;
+          f.j = j;
+          f.s = sv;
+          f.hi = hv;
+          f.lo = lv;
+          f.thr_up = tuv;
+          f.thr_lo = tlv;
+        }
+        if (++slot == kG) {
+          slot = 0;
+          harvest();
+          prepare<KIND>(a, f);
+          pending = true;
+        }
+      };
+
+      // every warp runs the same iterations, so that a streamed Qᵀ can
+      // synchronise the consumers; a warp without a row only stages. A
+      // warp takes kR rows at once, which share each Qᵀ value it loads. In
+      // the chunked layout a tile is one row a warp (iters = 1), whose sums
+      // carry over the tile's stages.
+      for (int it = 0; it < iters; it += kR) {
+        int jr[kR];
+        bool live[kR];  // the same in every lane; live[1] implies live[0]
 #pragma unroll
-      for (int r = 0; r < kR; ++r)
-        if (live[r]) row_step(jr[r], acc[r]);
+        for (int r = 0; r < kR; ++r) {
+          jr[r] = warp + (it + r) * kWarps;
+          live[r] = it + r < iters && jr[r] < h.live;
+          if (MASKED && last && !live[r] && it + r < iters && jr[r] < h.cnt &&
+              lane < a.B) {  // past n: m + 2
+            const size_t o = (size_t)(h.c0 + jr[r]) * a.ldo + lane;
+            a.r_lo[o] = a.r_up[o] = a.est[o] = a.m_plus_1 + 1.f;
+          }
+        }
+        if (c == 0) {
+#pragma unroll
+          for (int r = 0; r < kR; ++r)
+#pragma unroll
+            for (int b = 0; b < NB; ++b) sums[r][b] = 0.f;
+        }
+        // values [q0, q1) of the rows; qk holds rows q0.. of Qᵀ
+        auto dot = [&](int q0, int q1, const float* qk) {
+          const RowT* u0 = row_at(jr[0]);
+          if constexpr (kR == 2) {
+            if (live[1]) {
+              dot_rows2<NB>(sums[0], sums[1], u0, row_at(jr[1]), qk, q0, q1,
+                            lane);
+              return;
+            }
+          }
+          if (live[0]) dot_chunk<NB>(sums[0], u0, qk, q0, q1, lane);
+        };
+        if (stream) {
+          for (int q0 = k0; q0 < k1; q0 += a.L.qrows) {
+            const int q1 = min(k1, q0 + a.L.qrows);
+            consumer_sync();  // every warp is done with the previous chunk
+            stage_q<NB>(qs, a.Q, a.B, d, q0, q1 - q0, threadIdx.x,
+                        kConsumers);
+            consumer_sync();
+            dot(q0, q1, qs);
+          }
+        } else {
+          dot(k0, k1, qs + (size_t)k0 * q_stride<NB>());
+        }
+        if (last) {
+#pragma unroll
+          for (int r = 0; r < kR; ++r)
+            if (live[r]) row_step(jr[r], sums[r]);
+        }
+      }
+      if (last) harvest();
+      mbar_arrive(&empty[s]);
     }
-    harvest();
-    mbar_arrive(&empty[s]);
-  }
+  };
+  for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) consume();
   if (!pending && slot > 0) prepare<KIND>(a, f);
   finish_batch(pending ? kG : slot);
 }
@@ -872,34 +901,44 @@ quant_bound_ranks_kernel(const __grid_constant__ Args a) {
 // ----------------------------------------------------------------- host
 using KernelFn = void (*)(const Args);
 
-template <int KIND, typename RowT, bool MASKED, bool THR>
+template <int KIND, typename RowT, bool MASKED, bool THR, bool CHUNKED>
 KernelFn pick_nb(int nb) {
   switch (nb) {
-    case 1: return quant_bound_ranks_kernel<1, KIND, RowT, MASKED, THR>;
-    case 2: return quant_bound_ranks_kernel<2, KIND, RowT, MASKED, THR>;
-    case 4: return quant_bound_ranks_kernel<4, KIND, RowT, MASKED, THR>;
-    case 8: return quant_bound_ranks_kernel<8, KIND, RowT, MASKED, THR>;
-    default: return quant_bound_ranks_kernel<16, KIND, RowT, MASKED, THR>;
+    case 1:
+      return quant_bound_ranks_kernel<1, KIND, RowT, MASKED, THR, CHUNKED>;
+    case 2:
+      return quant_bound_ranks_kernel<2, KIND, RowT, MASKED, THR, CHUNKED>;
+    case 4:
+      return quant_bound_ranks_kernel<4, KIND, RowT, MASKED, THR, CHUNKED>;
+    case 8:
+      return quant_bound_ranks_kernel<8, KIND, RowT, MASKED, THR, CHUNKED>;
+    default:
+      return quant_bound_ranks_kernel<16, KIND, RowT, MASKED, THR, CHUNKED>;
   }
+}
+
+template <int KIND, typename RowT, bool MASKED>
+KernelFn pick_layout(int nb, const Layout& L) {
+  if (L.nch > 1) return pick_nb<KIND, RowT, MASKED, false, true>(nb);
+  if constexpr (KIND == kBf16) {
+    if (L.thr) return pick_nb<KIND, RowT, MASKED, true, false>(nb);
+  }
+  return pick_nb<KIND, RowT, MASKED, false, false>(nb);
 }
 
 template <int KIND, typename RowT>
-KernelFn pick(int nb, bool masked, bool thr) {
-  if constexpr (KIND == kBf16) {
-    if (thr)
-      return masked ? pick_nb<KIND, RowT, true, true>(nb)
-                    : pick_nb<KIND, RowT, false, true>(nb);
-  }
-  return masked ? pick_nb<KIND, RowT, true, false>(nb)
-                : pick_nb<KIND, RowT, false, false>(nb);
+KernelFn pick(int nb, bool masked, const Layout& L) {
+  return masked ? pick_layout<KIND, RowT, true>(nb, L)
+                : pick_layout<KIND, RowT, false>(nb, L);
 }
 
-KernelFn resolve(int kind, bool rows_f32, int nb, bool masked, bool thr) {
+KernelFn resolve(int kind, bool rows_f32, int nb, bool masked,
+                 const Layout& L) {
   if (kind == kBf16)
-    return rows_f32 ? pick<kBf16, float>(nb, masked, thr)
-                    : pick<kBf16, __nv_bfloat16>(nb, masked, thr);
-  return rows_f32 ? pick<kInt8, float>(nb, masked, thr)
-                  : pick<kInt8, int8_t>(nb, masked, thr);
+    return rows_f32 ? pick<kBf16, float>(nb, masked, L)
+                    : pick<kBf16, __nv_bfloat16>(nb, masked, L);
+  return rows_f32 ? pick<kInt8, float>(nb, masked, L)
+                  : pick<kInt8, int8_t>(nb, masked, L);
 }
 
 int nb_of(int B) { return B == 1 ? 1 : B == 2 ? 2 : B <= 4 ? 4 : B <= 8 ? 8 : 16; }
@@ -948,17 +987,6 @@ int check(const Args& a) {
   if (a.B > kMaxB || a.tau < 2 || a.n <= 0 || a.d <= 0 ||
       (a.ids && a.block_n <= 0))
     return (int)cudaErrorInvalidValue;
-  // the arrays the ring stages start 16-byte aligned (staged_at)
-  const uintptr_t bases =
-      reinterpret_cast<uintptr_t>(a.U) | reinterpret_cast<uintptr_t>(a.thr) |
-      reinterpret_cast<uintptr_t>(a.uslack) |
-      reinterpret_cast<uintptr_t>(a.uscale) |
-      reinterpret_cast<uintptr_t>(a.thr_sc) |
-      reinterpret_cast<uintptr_t>(a.thr_off) |
-      reinterpret_cast<uintptr_t>(a.thr_dev) |
-      reinterpret_cast<uintptr_t>(a.tab_sc) |
-      reinterpret_cast<uintptr_t>(a.tab_off);
-  if (bases & 15u) return (int)cudaErrorInvalidValue;
   return 0;
 }
 
@@ -974,7 +1002,7 @@ int run(Args a, int kind, int rows_f32, void* stream) {
   } else {
     a.ntiles = (a.rows + a.L.T - 1) / a.L.T;
   }
-  const KernelFn fn = resolve(kind, rows_f32, nb, a.ids != nullptr, a.L.thr);
+  const KernelFn fn = resolve(kind, rows_f32, nb, a.ids != nullptr, a.L);
   int err = 0;
   const int occ = occupancy(fn, a.L.total, &err);
   if (err) return err;
@@ -1061,8 +1089,8 @@ int run_int8(const void* U, int rows_f32, const float* uscale,
 
 // Outputs are user-major with row stride ldo: out[user * ldo + b]. rows_f32
 // != 0 takes f32 user rows (raw users against a bf16 table: the caller
-// passes zero slack). Every array that rides the ring (rows, thr, uslack)
-// must start 16-byte aligned: the launcher checks.
+// passes zero slack). The arrays may start at any address and d may be
+// any length.
 extern "C" int k4_bound_ranks_bf16(const void* U, int rows_f32,
                                    const float* uslack, const float* Q,
                                    const float* qnorm1, const void* thr,
@@ -1119,10 +1147,11 @@ extern "C" int k7_bound_ranks_int8_masked(
 }
 
 // The launch a K4 (kind 0) or K5 (kind 1) call at these sizes makes, and
-// its kernel's resources: out[0..8] = rows a tile, stages, thresholds
+// its kernel's resources: out[0..9] = rows a tile, stages, thresholds
 // staged (K4), dynamic shared memory in bytes, blocks an SM, registers a
 // thread, local memory a thread in bytes (spills), rows of Qᵀ held at
-// once, static shared memory in bytes.
+// once, static shared memory in bytes, values of each row a stage holds
+// (d unless rows stream in chunks).
 extern "C" int quant_launch_config(int kind, int rows_f32, int B, int d,
                                    int tau, int masked, int* out) {
   Layout L{};
@@ -1131,7 +1160,7 @@ extern "C" int quant_launch_config(int kind, int rows_f32, int B, int d,
   const int nb = nb_of(B);
   if (!plan(L, kind, elem_of(kind, rows_f32), nb, d, tau))
     return (int)cudaErrorInvalidValue;
-  const KernelFn fn = resolve(kind, rows_f32, nb, masked != 0, L.thr);
+  const KernelFn fn = resolve(kind, rows_f32, nb, masked != 0, L);
   int err = 0;
   const int occ = occupancy(fn, L.total, &err);
   if (err) return err;
@@ -1148,6 +1177,7 @@ extern "C" int quant_launch_config(int kind, int rows_f32, int B, int d,
   out[6] = (int)fa.localSizeBytes;
   out[7] = L.qrows;
   out[8] = (int)fa.sharedSizeBytes;
+  out[9] = L.kc;
   return 0;
 }
 

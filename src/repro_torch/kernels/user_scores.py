@@ -25,9 +25,9 @@ kept rows.
 Any d for K1/K6: Qᵀ stays in shared memory whole where it fits and
 streams through it in 256-row chunks where it does not, with the same
 scores. K4/K5/K7 stage tiles of rows through a shared-memory ring by bulk
-asynchronous copies; each array that rides the ring must start 16-byte
-aligned (checked here), and a row may take up to about 100 KB (d about
-25,000 at f32), beyond which the launch is refused.
+asynchronous copies; an array may start at any address (a view at an
+offset), and rows too long for two stages of whole rows (d past about
+25,000 at f32) stream through the ring in chunks, with the same scores.
 """
 from __future__ import annotations
 
@@ -83,21 +83,10 @@ def bound_ranks_quant_kernel_call(kind: str, rows: torch.Tensor,
     K7 launch over the tiles they name. rows are the stored dtype or
     f32; uslack (n, 1) f32, and for K5 uscale (n, 1) f32. Writes
     row-major (rows, nb) outputs, which may be column slices of wider
-    arrays. Inputs are checked by the caller, except that each array the
-    kernel stages must start 16-byte aligned (ValueError here)."""
+    arrays. Inputs are checked by the caller."""
     n, d = rows.shape
     tau = rt.tau
     rows_f32 = int(rows.dtype == torch.float32)
-    staged = {"rows": rows, "uslack": uslack}
-    staged.update({"thresholds": rt.thresholds} if kind == "bf16" else
-                  {"uscale": uscale, "thr_scale": rt.thr_scale,
-                   "thr_off": rt.thr_off, "thr_dev": rt.thr_dev,
-                   "tab_scale": rt.tab_scale, "tab_off": rt.tab_off})
-    for name, t in staged.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start 16-byte aligned (a view "
-                             "at an offset is not): the kernel stages it "
-                             "by bulk copies")
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     common = (r_lo.data_ptr(), r_up.data_ptr(), est.data_ptr(), n, d,
               qs.shape[0], tau, r_lo.stride(0), float(rt.m + 1))
@@ -125,7 +114,7 @@ def bound_ranks_quant_kernel_call(kind: str, rows: torch.Tensor,
 
 CONFIG_FIELDS = ("tile_rows", "stages", "thresholds_staged", "smem_bytes",
                  "blocks_per_sm", "registers", "local_bytes", "q_rows",
-                 "static_smem_bytes")
+                 "static_smem_bytes", "row_chunk")
 
 
 def quant_launch_config(kind: str, rows_f32: bool, B: int, d: int,
@@ -135,7 +124,8 @@ def quant_launch_config(kind: str, rows_f32: bool, B: int, d: int,
     (`cudaFuncGetAttributes`): rows a tile, ring stages, whether K4's
     thresholds rows are staged, dynamic shared memory, blocks an SM,
     registers and local (spill) bytes a thread, rows of Qᵀ held at once,
-    static shared memory."""
+    static shared memory, and the values of each row a stage holds (d, or
+    the chunk where rows stream through the ring)."""
     out = (ctypes.c_int * len(CONFIG_FIELDS))()
     _build.call("user_scores_quant", "quant_launch_config",
                 0 if kind == "bf16" else 1, int(rows_f32), B, d, tau,

@@ -112,3 +112,42 @@ def test_metrics_match_reference(seed, c):
         ref_metrics.overall_ratio(result_idx, exact_idx, true_ranks)
     assert metrics.accuracy(exact_idx, exact_idx, true_ranks, c) == 1.0
     assert metrics.overall_ratio(exact_idx, exact_idx, true_ranks) == 1.0
+
+
+def _offset_view(x):
+    """x's values in a contiguous view 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 37, 200, 328, 1031])
+def test_exact_kernel_matches_plain_on_card(d):
+    """K3 on the card against its plain version, on integer inputs (exact
+    scores in any order, so the ranks must be equal), at ragged n and m
+    around its 128-user block and 256-item tile, at depths that fill its
+    ring by 4-byte copies (d = 1, 37, 1,031) and by bulk copies (d = 200,
+    328), with its user tile resident (d <= 200) and staged (d = 328,
+    1,031), on views U[1:] and P[1:] and on rows 4 bytes past a 16-byte
+    boundary (4-byte copies at every d), and with q ∈ P. Run on a machine
+    with a GPU:
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_exact.py"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    users, items = _problem(d, integer=True, n=300, m=300, d=d)
+    U, P = torch.from_numpy(users).to(dev), torch.from_numpy(items).to(dev)
+    plain = lambda u, p, q: 1 + ref.ref_exact_counts(u, p, q)
+    for n in (1, 63, 64, 65, 129, 257):
+        for m in (1, 63, 64, 65, 129, 257):
+            for q in (P[m - 1], P[0] + 1.0):
+                got = ops.exact_ranks(U[:n], P[:m], q.contiguous())
+                assert got.dtype == torch.int32
+                assert torch.equal(got, plain(U[:n], P[:m], q))
+    q = P[7].contiguous()
+    for u, p in ((U[1:], P), (U, P[1:]), (U[1:], P[1:]),
+                 (_offset_view(U), _offset_view(P))):
+        assert torch.equal(ops.exact_ranks(u, p, q), plain(u, p, q))

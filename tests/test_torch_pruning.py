@@ -884,3 +884,45 @@ def test_kernels_take_a_large_d_on_card(spec):
             assert torch.equal(ops.exact_ranks(eng.users, items,
                                                q.contiguous()),
                                1 + ref.ref_exact_counts(eng.users, items, q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", SPECS)
+def test_kernels_take_a_long_row_on_card(spec):
+    """d = 30,000: K4/K5/K7 rows too long for two ring stages of whole
+    rows stream through the ring in chunks (raw f32 rows past d ≈ 25,000,
+    stored bf16 rows are still whole), K1/K6 stream Qᵀ. On integer inputs
+    (exact scores in any order) the bounds are bitwise the plain
+    version's, est within 1e-5, and K6/K7's kept rows bitwise the full
+    scan's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels import user_scores
+    eng, su, items = _card_state(spec, 70, 30_000, 33, 5)
+    rt = eng.rank_table
+    rows = (su,) if spec == "f32" else (su, eng.users)
+    if spec != "f32":
+        cfg = user_scores.quant_launch_config(spec, True, 16, 30_000, 33)
+        assert cfg["row_chunk"] < 30_000     # raw f32 rows go in chunks
+    for u in rows:
+        for B in (1, 3, 16):
+            qs = items[:B].contiguous()
+            got = ops.bound_ranks_batched_stored(u, qs, rt)
+            if spec == "f32":
+                want = ref.ref_bound_ranks(u, qs, rt.thresholds, rt.table,
+                                           rt.m)
+            else:
+                r_, usc, usl = ops.stored_parts(u, spec)
+                want = ref.ref_bound_ranks_stored(r_, usc, usl, qs,
+                                                  Q.query_l1(qs), rt)
+            assert torch.equal(got[0], want[0].T)
+            assert torch.equal(got[1], want[1].T)
+            torch.testing.assert_close(got[2], want[2].T, rtol=EST_RTOL,
+                                       atol=0)
+            ids = torch.tensor([1, 0, 1], dtype=torch.int32, device="cuda")
+            masked = ops.bound_ranks_batched_pruned_stored(u, qs, rt, ids,
+                                                           block_n=64)
+            ridx = P.row_indices(ids, 64).long()
+            live = ridx < 70
+            for g, f in zip(masked, got):
+                assert torch.equal(g[:, live], f[:, ridx[live]])

@@ -538,6 +538,40 @@ def test_own_build_contains_f32(own_build, spec, backend):
     assert eng.memory_bytes() == expect
 
 
+def _row_views(rt, su):
+    """rt and su with every per-user array a view from row 1 on (at an
+    offset from its allocation), and contiguous copies of those views."""
+    view = lambda t: None if t is None else t[1:]
+    copy = lambda t: None if t is None else t[1:].clone()
+    tables = [type(rt)(**{f: (rt.m if f == "m" else fn(getattr(rt, f)))
+                          for f in rt._fields}) for fn in (view, copy)]
+    users = [type(su)(*(fn(x) for x in su)) for fn in (view, copy)]
+    return tables, users
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_stored_wrapper_takes_views(spec):
+    """The K4/K5 wrapper on views at an offset (stored rows, raw rows and
+    every table array from row 1 on) gives bitwise its result on copies
+    of the same values. On the CPU this is the plain path; the card's
+    kernels are held to the same in test_quant_kernel_staging_on_card."""
+    users, items = _int_problem(12)
+    U, P = torch.from_numpy(users), torch.from_numpy(items)
+    cfg = RankTableConfig(tau=37, omega=4, s=16, storage_dtype=spec)
+    g = torch.Generator()
+    g.manual_seed(3)
+    rt = rt_mod.build_rank_table(U, P, cfg, g)
+    (rt_v, rt_c), (su_v, su_c) = _row_views(rt, cfg.storage.pack_users(U))
+    assert rt_v.table.data_ptr() != rt_c.table.data_ptr()
+    for u_v, u_c in ((su_v, su_c), (U[1:], U[1:].clone())):
+        for B in (1, 3, 16):
+            qs = P[:B].contiguous()
+            got = ops.bound_ranks_batched_stored(u_v, qs, rt_v)
+            want = ops.bound_ranks_batched_stored(u_c, qs, rt_c)
+            for g_, w_ in zip(got, want):
+                assert torch.equal(g_, w_)
+
+
 # ------------------------------------------------------------------ card
 @pytest.mark.cuda
 @pytest.mark.parametrize("spec", SPECS)
@@ -577,7 +611,8 @@ def test_quant_kernel_matches_plain_on_card(spec):
 # odd τ, a τ whose thresholds rows do not fit a stage (searched in global
 # memory instead), Qᵀ streamed (d = 1,031), K7 under a row map whose
 # entries start off 16 bytes, with a tail tile and duplicate ids, and a
-# view at an offset, which the launcher refuses.
+# view at an offset, whose every staged array starts off 16 bytes and
+# which must give bitwise the outputs of the same call on a copy.
 STAGING_CASES = ("n_below_tile", "n_past_tile", "d37", "tau777",
                  "tau_past_stage", "d1031", "k7_tail_dups", "unaligned_view")
 
@@ -647,13 +682,15 @@ def test_quant_kernel_staging_on_card(spec, case):
         return
     if case == "unaligned_view":
         U, P, rt, su = _card_table(spec, 300, 37, 37, 300, 22)
-        qs = P[:3].contiguous()
-        view = lambda t: None if t is None else t[1:]
-        rt_v = type(rt)(**{f: (rt.m if f == "m" else view(getattr(rt, f)))
-                           for f in rt._fields})
-        for u in (type(su)(*(view(x) for x in su)), U[1:]):
-            with pytest.raises(ValueError, match="16-byte aligned"):
-                ops.bound_ranks_batched_stored(u, qs, rt_v)
+        (rt_v, rt_c), (su_v, su_c) = _row_views(rt, su)
+        for u_v, u_c in ((su_v, su_c), (U[1:], U[1:].clone())):
+            for B in (1, 3, 16):
+                qs = P[:B].contiguous()
+                got = ops.bound_ranks_batched_stored(u_v, qs, rt_v)
+                want = ops.bound_ranks_batched_stored(u_c, qs, rt_c)
+                for g_, w_ in zip(got, want):
+                    assert torch.equal(g_, w_)
+                _assert_plain(u_v, qs, rt_v, spec)
         return
     if case == "tau_past_stage":
         tau, n, d = 4000, 300, 37
