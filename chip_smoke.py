@@ -12,7 +12,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      tile of their shared-memory ring, stages, shared memory, blocks an
      SM) with each instance's registers and local memory, and K3's (its
      tile, ring stages, shared memory, blocks an SM, registers, local
-     memory) at d = 200 and at the depths phase 3 drives;
+     memory) at d = 200 and at the depths phase 3 drives, and K2's (its
+     product's tile, ring stages, shared memory, blocks an SM, registers
+     and local memory, the count's, the users a chunk and the workspace);
   3. each kernel against its plain PyTorch version on the card at ragged
      shapes (K4/K5 on integer inputs, where they must agree exactly, with
      stored and with raw f32 users; and on randn inputs, where query 0
@@ -28,7 +30,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      on views at an offset (every staged array from row 1 on, d = 37),
      bitwise the same call on copies, and on rows of d = 30,000 (raw f32
      rows stream through the ring in chunks), bitwise their plain
-     versions on integer inputs;
+     versions on integer inputs; K2 at its edges (S = 40, 640, 777 and
+     4,096, tau = 1 to 1,031, d = 37, the last resident depth of its
+     product and the next, 1,031; rows of thresholds ascending,
+     descending and shuffled; views from row 1; ties and +-0.0) bitwise
+     its plain version on integer inputs with integer, equal dyadic and
+     runs-of-64 weights, two launches equal, and by the explained-mismatch
+     rule with random weights on shuffled rows;
      and the port's engine on the card against the same engine on the
      CPU at a small size, at each spec;
   4. the main path at the paper's Netflix size (n = 480,189 users,
@@ -38,8 +46,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      exact grading of those queries through K3 with the §5 accuracy and
      overall ratio, held against the dense backend. The launch counts are
      zeroed just before and read just after; each kernel must have run.
-     Then the SHA-256 digest of what the 32 K3 launches gave (the 16 rank
-     vectors, then the 16 reverse_k_ranks (indices, ranks) pairs);
+     Then the SHA-256 digests of the f32 build's table (K2) and of what
+     the 32 K3 launches gave (the 16 rank vectors, then the 16
+     reverse_k_ranks (indices, ranks) pairs);
   4b. the storage tier on the same data: builds at bf16 and int8 with the
      f32 build's samples (K2), whose packs must equal `pack_table` /
      `pack_users` of the f32 arrays; query_batch and query on the fused
@@ -69,10 +78,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      reaches at its power limit, not K3's function (it writes every
      score and counts nothing), and not called by the port.
 
-`--digests SRC` runs only phase 4's data, K3 grading and the storage
-tier's tables with the package under SRC (another tree's `src`, built in
-that tree), and prints the K3 digest and the 16 K4/K5/K7 digests of
-phase 4b, for comparison with this tree's in one call.
+`--digests SRC` runs only phase 4's data, its f32 build, K3 grading and
+the storage tier's tables with the package under SRC (another tree's
+`src`, built in that tree), and prints the K2 and K3 digests and the 16
+K4/K5/K7 digests of phase 4b, for comparison with this tree's in one
+call.
 
 The explained-mismatch rule: a kernel and its plain version compute the
 same f32 dot products in different orders, so a score may differ by the
@@ -107,6 +117,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 N, M, D = 480_189, 17_770, 200     # Netflix (src/repro/configs/paper_engine.py)
 TAU, OMEGA, S_PER = 500, 10, 64    # DEFAULT_TABLE
+S_MAIN = OMEGA * S_PER             # samples of the build (K2)
 K, C, B = 10, 2.0, 16
 D_WIDE = 1031                      # past every former shared-memory cap
 D_LONG = 30_000                    # raw f32 rows past two ring stages
@@ -448,6 +459,37 @@ def k3_config_line(ops, d: int) -> str:
             f"and {c['local_bytes']} B local a thread")
 
 
+def k2_config_line(ops, n: int, d: int, S: int) -> str:
+    """K2's launches at (n, d, S) and their kernels' resources."""
+    c = ops.table_build.launch_config(n, d, S)
+    return (f"  K2 n={n} d={d} S={S}: product {c['block_users']} users x "
+            f"{c['tile_samples']} samples a block, {c['stages']} stages of "
+            f"{c['stage_depth']} depths, user tile "
+            f"{'resident' if c['users_resident'] else 'staged'}, "
+            f"{c['smem_bytes']} B dynamic shared memory, "
+            f"{c['blocks_per_sm']} blocks an SM, {c['registers']} registers "
+            f"and {c['local_bytes']} B local a thread; count "
+            f"{c['count_users_per_block']} users (a warp each) a block, runs "
+            f"of {c['count_run']} samples, {c['count_smem_bytes']} B dynamic "
+            f"shared memory, {c['count_blocks_per_sm']} blocks an SM, "
+            f"{c['count_registers']} registers and {c['count_local_bytes']} "
+            f"B local a thread; {c['chunk_users']} users a chunk, workspace "
+            f"{c['workspace_bytes']} B")
+
+
+def k2_resident_cap(ops, S: int) -> int:
+    """The last depth at which K2's product keeps its user tile
+    resident."""
+    return max(d for d in range(1, D_WIDE)
+               if ops.table_build.launch_config(1, d, S)["users_resident"])
+
+
+def table_digest(table) -> str:
+    """SHA-256 of a rank table's f32 values (K2's output)."""
+    import hashlib
+    return hashlib.sha256(table.cpu().numpy().tobytes()).hexdigest()
+
+
 def k3_edge_depths(ops) -> tuple:
     """The depths phase 3 drives K3 at: odd (d = 37), the last depth
     whose user tile stays resident, the next (staged), and d = 1,031."""
@@ -696,6 +738,12 @@ def digests_of(torch, exact_mod, rt_mod, ReverseKRanksEngine,
     print(f"package: {ops.__file__}")
     users, items, cfg, pos, w, qs = netflix_data(
         torch, rt_mod, synthetic_embeddings, RankTableConfig, dev)
+    eng = ReverseKRanksEngine.build(users, items, cfg, None,
+                                    backend="fused", device=dev,
+                                    positions=pos, weights=w)
+    print(f"  digest K2 (the f32 table, {N} x {TAU}): "
+          f"{table_digest(eng.rank_table.table)}")
+    del eng
     truth, exact_idx, exact_rk = grade(torch, exact_mod, users, items, qs)
     print(f"  digest K3 ({B} rank vectors, {B} reverse_k_ranks (indices, "
           f"ranks)): {k3_digest(truth, exact_idx, exact_rk)}")
@@ -800,6 +848,11 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
     k3_ds = k3_edge_depths(ops)
     for d in (D,) + k3_ds:
         print(k3_config_line(ops, d))
+    print("K2 launches:")
+    k2_cap = k2_resident_cap(ops, S_MAIN)
+    for n, d, S in ((N, D, S_MAIN), (300, k2_cap + 1, 500),
+                    (300, D_WIDE, 4096)):
+        print(k2_config_line(ops, n, d, S))
 
     # 3. kernels against plain versions at ragged shapes
     print("phase: kernels vs plain, ragged shapes")
@@ -1103,6 +1156,76 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
               "exact against plain, est within 1e-5, K7 bitwise the full "
               "scan on its kept rows")
 
+    # 3f. K2 at its edges: part of a sample tile (S = 40, 777), the main
+    # path's S, four runs of its count (4,096); tau from 1 to past 1,024;
+    # the product's resident user tile at its last depth and the next;
+    # rows of thresholds in any order; views from row 1; scores on a
+    # threshold and zero scores against +-0.0. Its own generator.
+    print("phase: K2 at its edges")
+    g6 = torch.Generator(device=dev)
+    g6.manual_seed(23)
+    n_cases = 0
+    for S in (40, S_MAIN, 777, 4096):
+        for d, tau in ((37, 1), (37, 37), (37, 500), (37, 1031), (k2_cap, 37),
+                       (k2_cap + 1, 500), (D_WIDE, 37)):
+            iu = torch.randint(-4, 5, (300, d), generator=g6,
+                               device=dev).float()
+            ip = torch.randint(-4, 5, (S, d), generator=g6, device=dev).float()
+            iu[0] = 0.0
+            top = int((iu @ ip.T).abs().max()) + 2
+            thr = (torch.randint(-top, top, (300, tau), generator=g6,
+                                 device=dev)
+                   + 0.5 * torch.randint(0, 2, (300, tau), generator=g6,
+                                         device=dev)).float()
+            thr[0, :2] = torch.tensor([-0.0, 0.0], device=dev)[:tau]
+            wi = torch.randint(1, 4, (S,), generator=g6, device=dev).float()
+            asc = torch.sort(thr, dim=1).values
+            perm = torch.argsort(torch.rand((300, tau), generator=g6,
+                                            device=dev), dim=1)
+            # integer weights (each sorts with its key), equal dyadic ones
+            # (keys sort alone), one integer a run of 64 (parts of both)
+            for wts, kind in (
+                    (wi, "integer"),
+                    (torch.full((S,), 1777 / 64, device=dev), "equal"),
+                    (torch.repeat_interleave(wi[:S // 64 + 1], 64)[:S],
+                     "runs of 64")):
+                for t, what in ((asc.contiguous(), "ascending"),
+                                (torch.flip(asc, [1]).contiguous(),
+                                 "descending"),
+                                (torch.gather(asc, 1, perm), "shuffled")):
+                    got = ops.build_table_rows(iu, ip, wts, t)
+                    check(torch.equal(got,
+                                      ref.ref_table_rows(iu, ip, wts, t)),
+                          f"K2 S={S} d={d} tau={tau} {what}, {kind} "
+                          "weights: integer inputs differ from the plain "
+                          "version")
+                    check(torch.equal(got,
+                                      ops.build_table_rows(iu, ip, wts, t)),
+                          f"K2 S={S} d={d} tau={tau} {what}, {kind} "
+                          "weights: two launches differ")
+                    n_cases += 1
+            check(torch.equal(
+                ops.build_table_rows(iu[1:], ip[1:], wi[1:], thr[1:]),
+                ref.ref_table_rows(iu[1:], ip[1:], wi[1:], thr[1:])),
+                f"K2 S={S} d={d} tau={tau}: views from row 1 differ from "
+                "the plain version")
+            n_cases += 1
+        users = torch.randn((1000, 37), generator=g6, device=dev)
+        samples = torch.randn((S, 37), generator=g6, device=dev)
+        sc = users @ samples.T
+        grid = rt_mod.threshold_grid(sc.min(dim=1).values,
+                                     sc.max(dim=1).values, 64)
+        perm = torch.argsort(torch.rand((1000, 64), generator=g6,
+                                        device=dev), dim=1)
+        w_rand = torch.rand((S,), generator=g6, device=dev) + 0.5
+        check_k2(torch, ops, ref, users, samples, w_rand,
+                 torch.gather(grid, 1, perm), "random weights, shuffled rows")
+    print(f"  K2: S in 40, {S_MAIN}, 777, 4096; d in 37, {k2_cap}, "
+          f"{k2_cap + 1}, {D_WIDE}; tau in 1, 37, 500, 1031: {n_cases} "
+          "integer cases (integer, equal and runs-of-64 weights; rows "
+          "ascending, descending and shuffled; views from row 1; ties, "
+          "+-0.0) bitwise the plain version, two launches equal")
+
     print("phase: engine on the card vs the same engine on the CPU")
     users, items = synthetic_embeddings(3, 2048, 1024, 32, device=dev)
     cfg = RankTableConfig(tau=64)
@@ -1172,6 +1295,8 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
         check(counts[name] >= 1,
               f"kernel {name} was not launched on the main path")
     mem = eng.memory_bytes()
+    print(f"  digest K2 (the f32 table, {N} x {TAU}): "
+          f"{table_digest(eng.rank_table.table)}")
     print(f"  build {build_s:.3f} s (host clock, incl. sort, sampling and "
           f"the K2 launch); query_batch(B={B}) {qb_ms:.2f} ms; query "
           f"{q1_ms:.2f} ms; exact grading {exact_s:.2f} s for {B} queries "
@@ -1571,7 +1696,18 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
         users @ samples.T, w, thr), reps=3)
     print(f"  K2's sort + suffix-sum form (the wrapper's CPU path) on the "
           f"card: {est_ms:.3f} ms")
+    print("  K2 " + device_breakdown(
+        torch, lambda: ops.build_table_rows(users, samples, w, thr), reps=5,
+        top=3))
+    # weights that are not all equal, so that every weight sorts with its
+    # key (the count's other path); their sums are not exact in f32
     S = samples.shape[0]
+    w_mixed = w * (1.0 + (torch.arange(S, device=dev) % 2) / 64.0)
+    check_k2(torch, ops, ref, users, samples, w_mixed, thr,
+             "Netflix, unequal weights")
+    print("  K2, unequal weights: " + device_breakdown(
+        torch, lambda: ops.build_table_rows(users, samples, w_mixed, thr),
+        reps=5, top=3))
     row("k2_table_build", "src/repro/kernels/table_build.py:28",
         counts["k2_table_build"], err, ms, pms,
         4 * (N * D + S * D + S + 2 * N * TAU), 2 * N * S * D,

@@ -100,7 +100,11 @@ def build_rank_table_sorted(users: torch.Tensor, items_sorted: torch.Tensor,
     weights = weights.to(device=users.device, dtype=torch.float32)
     scores = users @ samples.T                          # (n, ω·s)
     smin, smax = _threshold_range(users, items_sorted, scores, cfg)
-    del scores                          # stage 3 recomputes them
+    # Stage 3 does not take these scores: K2 computes its own, one fmaf
+    # chain a score inside the kernel, so the thresholds and the
+    # indicators come from two products, as in the reference. Handing it
+    # this product would change the table's bits.
+    del scores
     thresholds = threshold_grid(smin, smax, cfg.tau).contiguous()
     table = ops.build_table_rows(users, samples, weights, thresholds)
     return cfg.storage.pack_table(thresholds, table, m=m)

@@ -49,7 +49,10 @@ SIGNATURES = {
                                        P, P, P, I, I, I, I, I, F, F, F, F, I,
                                        I, P),
         "quant_launch_config": (I, I, I, I, I, I, P)},
-    "table_build": {"k2_table_build": (P, P, P, P, P, I, I, I, I, P)},
+    "table_build": {"k2_plan": (I, I, I, P),
+                    "k2_table_build": (P, P, P, P, P, P, I, I, I, I, I,
+                                       P),
+                    "k2_launch_config": (I, I, I, P)},
     "exact_rank": {"k3_exact_ranks": (P, P, P, P, P, I, I, I, P),
                    "k3_workspace_floats": (I, I, P),
                    "k3_launch_config": (I, P)},

@@ -277,7 +277,8 @@ def build_table_rows(users: torch.Tensor, samples: torch.Tensor,
     """K2: Eq. (1) rows 1 + Σ_s w_s·I[u·p_s > t_j] for all users.
 
     users (n, d), samples (S, d), weights (S,), thresholds (n, τ), all
-    f32 → (n, τ) f32.
+    f32 → (n, τ) f32; a row of thresholds may hold any order. On CUDA,
+    one call (its pack, product and count launches) counts one launch.
     """
     dev = users.device
     _check("users", users, 2, dev)

@@ -93,8 +93,10 @@ def ref_bound_ranks_stored_masked(rows: torch.Tensor,
 def estimate_table_rows(scores: torch.Tensor, weights: torch.Tensor,
                         thresholds: torch.Tensor) -> torch.Tensor:
     """Eq. (1) by sort + weighted suffix sum, for (n, S) scores, (S,)
-    weights and (n, τ) ascending thresholds → (n, τ) f32 rows
-    1 + Σ_s w_s·I[score_s > t_j], non-increasing along j."""
+    weights and (n, τ) thresholds → (n, τ) f32 rows
+    1 + Σ_s w_s·I[score_s > t_j]. Each threshold is placed by a search of
+    its own, so a row may hold its thresholds in any order (ascending
+    rows give non-increasing table rows)."""
     scores_sorted, order = torch.sort(scores, dim=1, stable=True)
     w_sorted = weights[order]
     suffix = torch.cat(

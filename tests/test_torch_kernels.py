@@ -150,6 +150,51 @@ def test_table_rows_match_sorted_estimator():
                                             _t(weights), _t(thr)), want)
 
 
+def _rearranged(thr, order, rng):
+    """Rows of thresholds `thr` (n, τ) as they are ("ascending"),
+    reversed ("descending") or each shuffled on its own ("shuffled")."""
+    if order == "descending":
+        thr = thr[:, ::-1]
+    elif order == "shuffled":
+        thr = rng.permuted(thr, axis=1)
+    return np.ascontiguousarray(thr)
+
+
+@pytest.mark.parametrize("order", ["descending", "shuffled"])
+def test_table_rows_take_thresholds_in_any_order(order):
+    """The sort + suffix + search form (`estimate_table_rows`: the
+    wrapper's CPU path, and the form K2 computes on the card) places each
+    threshold by a search of its own, so a row of thresholds may hold any
+    order. On descending and on shuffled rows it equals the direct count
+    of both packages (`ref_table_rows`) and the Pallas kernel in interpret
+    mode, bitwise with dyadic weights (every partial sum exact). Integer
+    scores meet half-integer thresholds, integer thresholds that tie them
+    (a tie does not count) and ±0.0, against user 0's scores, all zero
+    (the plain version fed -0.0 for half of them as well)."""
+    rng = np.random.default_rng(23)
+    users, samples, weights, thr = _table_inputs(17, 150, 48, 40, True)
+    users[0] = 0.0
+    thr[:, :3] = [-0.0, 0.0, -1.0]
+    thr[:, 3:9] = np.floor(thr[:, 3:9])
+    thr = _rearranged(np.sort(thr, axis=1), order, rng)
+    args = (users, samples, weights, thr)
+    got = ops.build_table_rows(*map(_t, args))
+    want_torch = ref.ref_table_rows(*map(_t, args))
+    want_ref = rref.ref_table_rows(*map(jnp.asarray, args))
+    want_kernel = rops.build_table_rows(*map(jnp.asarray, args))
+    for want in (want_torch, want_ref, want_kernel):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    zero = np.isin(thr[0], [0.0, -1.0])
+    np.testing.assert_array_equal(
+        got[0].numpy()[zero],
+        np.where(thr[0][zero] < 0, 1 + weights.sum(), 1.0))
+    scores = _t(users) @ _t(samples).T
+    scores[0, ::2] = -0.0
+    np.testing.assert_array_equal(
+        ref.estimate_table_rows(scores, _t(weights), _t(thr)).numpy(),
+        got.numpy())
+
+
 @pytest.mark.parametrize("n,m", [(300, 700), (64, 100)])
 @pytest.mark.parametrize("q_in_p", [True, False])
 def test_exact_ranks_match_reference(n, m, q_in_p):
@@ -273,3 +318,57 @@ def test_kernel_matches_plain_on_card(kernel):
         for q in (P[11], _t(users[0]).to(dev)):
             assert torch.equal(ops.exact_ranks(U, P, q.contiguous()),
                                1 + ref.ref_exact_counts(U, P, q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [40, 640, 777, 4096])
+def test_table_build_at_its_edges_on_card(S):
+    """K2 on the card at its edges, on integer inputs (every score exact
+    in any order): part of a sample tile (S = 40, 777), Netflix's 640, and
+    4,096 samples (four runs of the count); τ ∈ {1, 37, 500, 1,031};
+    d ∈ {37, the last depth whose user tile stays resident and the next,
+    1,031}; rows of thresholds ascending, descending and shuffled, with
+    integer thresholds on scores and ±0.0 against user 0's zero scores;
+    views from row 1 of every input. With weights whose sums are exact
+    (integers, equal dyadic, or equal in runs of 64 samples) the table is
+    bitwise `ref_table_rows` and two launches agree; with
+    non-dyadic weights it is within 1e-5 relative. Run on a machine with
+    a GPU: PYTHONPATH=src python -m pytest -m cuda
+    tests/test_torch_kernels.py"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels import table_build
+    dev = torch.device("cuda")
+    cap = max(d for d in range(200, 260)
+              if table_build.launch_config(1, d, S)["users_resident"])
+    rng = np.random.default_rng(S)
+    for d, tau in ((37, 1), (37, 37), (37, 500), (37, 1031), (cap, 37),
+                   (cap + 1, 500), (1031, 37)):
+        n = 300
+        users = rng.integers(-4, 5, (n, d)).astype(np.float32)
+        samples = rng.integers(-4, 5, (S, d)).astype(np.float32)
+        users[0] = 0.0
+        top = int(np.abs(users @ samples.T).max()) + 2
+        thr = (rng.integers(-top, top, (n, tau))
+               + 0.5 * rng.integers(0, 2, (n, tau))).astype(np.float32)
+        thr[0, :2] = [-0.0, 0.0][:tau]
+        U, Pm = _t(users).to(dev), _t(samples).to(dev)
+        # integer weights (each sorts with its key), Netflix's equal
+        # 1777/64 (keys sort alone) and one integer a run of 64 samples
+        # (parts of either kind)
+        for wts in (rng.integers(1, 4, S), np.full(S, 1777 / 64),
+                    np.repeat(rng.integers(1, 4, S // 64 + 1), 64)[:S]):
+            W = _t(wts.astype(np.float32)).to(dev)
+            for order in ("ascending", "descending", "shuffled"):
+                T = _t(_rearranged(np.sort(thr, axis=1), order, rng)).to(dev)
+                got = ops.build_table_rows(U, Pm, W, T)
+                assert torch.equal(got, ref.ref_table_rows(U, Pm, W, T)), \
+                    (d, tau, order)
+                assert torch.equal(got, ops.build_table_rows(U, Pm, W, T))
+        T = _t(thr).to(dev)
+        assert torch.equal(ops.build_table_rows(U[1:], Pm[1:], W[1:], T[1:]),
+                           ref.ref_table_rows(U[1:], Pm[1:], W[1:], T[1:]))
+        Wr = _t(rng.uniform(0.5, 3.0, S).astype(np.float32)).to(dev)
+        torch.testing.assert_close(ops.build_table_rows(U, Pm, Wr, T),
+                                   ref.ref_table_rows(U, Pm, Wr, T),
+                                   rtol=1e-5, atol=0)
