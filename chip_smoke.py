@@ -10,7 +10,8 @@ Phases, each fatal on failure (exit code 1, no result line):
   2. build K1-K7 from `src/repro_torch/kernels/csrc/*.cu` with nvcc, and
      print the launch K4/K5/K7 make at the main path's sizes (rows a
      tile of their shared-memory ring, stages, shared memory, blocks an
-     SM) with each instance's registers and local memory, and K3's (its
+     SM) with each instance's registers and local memory, K1/K6's the
+     same at d = 200 and at the depths phase 3 drives, and K3's (its
      tile, ring stages, shared memory, blocks an SM, registers, local
      memory) at d = 200 and at the depths phase 3 drives, and K2's (its
      product's tile, ring stages, shared memory, blocks an SM, registers
@@ -36,7 +37,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      descending and shuffled; views from row 1; ties and +-0.0) bitwise
      its plain version on integer inputs with integer, equal dyadic and
      runs-of-64 weights, two launches equal, and by the explained-mismatch
-     rule with random weights on shuffled rows;
+     rule with random weights on shuffled rows; K1/K6 at the edges of
+     their ring (`k1_edges`: n about a tile, d = 1 to 30,000, tau = 1 to
+     30,000, B = 1 to 19, runs of equal thresholds with scores on them
+     and off the grid, views from row 1, K6 at block_n 256 and 100 with a
+     tail tile and duplicate ids) bitwise their plain versions on integer
+     inputs;
      and the port's engine on the card against the same engine on the
      CPU at a small size, at each spec;
   4. the main path at the paper's Netflix size (n = 480,189 users,
@@ -44,11 +50,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      synthetic embeddings from a seed: Algorithm 1 build on the fused
      backend (K2), query_batch of 16 item queries and one query (K1),
      exact grading of those queries through K3 with the §5 accuracy and
-     overall ratio, held against the dense backend. The launch counts are
+     overall ratio, held against the dense backend, and a torch.profiler
+     breakdown of the fused query and query_batch. The launch counts are
      zeroed just before and read just after; each kernel must have run.
-     Then the SHA-256 digests of the f32 build's table (K2) and of what
-     the 32 K3 launches gave (the 16 rank vectors, then the 16
-     reverse_k_ranks (indices, ranks) pairs);
+     Then the SHA-256 digests of the f32 build's table (K2), of K1's
+     (r_lo, r_up, est) at B = 16 and 1, and of what the 32 K3 launches
+     gave (the 16 rank vectors, then the 16 reverse_k_ranks (indices,
+     ranks) pairs);
   4b. the storage tier on the same data: builds at bf16 and int8 with the
      f32 build's samples (K2), whose packs must equal `pack_table` /
      `pack_users` of the f32 arrays; query_batch and query on the fused
@@ -68,21 +76,24 @@ Phases, each fatal on failure (exit code 1, no result line):
      rows; (ii) the pruned path forced (max_union_frac=1.0) at f32, bf16
      and int8, where K6 and K7 must launch (its own launch counts), the
      selection must be the full scan's and query(q) row 0 of
-     query_batch; (iii) the mid_mixture regime reordered, with a
+     query_batch, and the digests of K6's outputs over its kept tiles at
+     B = 16 and 1; (iii) the mid_mixture regime reordered, with a
      hot-cluster batch: skip rate and time beside the full scan;
   5. each kernel against its plain version on the main path's inputs,
      and their times beside the card's bound (K6/K7 on phase 4c (ii)'s
-     kept tiles, bounded over the kept rows); beside K3, the time of
+     kept tiles, bounded over the kept rows; K1, K4 and K5 also their
+     launches alone); beside K3, the time of
      torch.matmul of the same (n, d) x (d, m) f32 product, TF32 off, in
      user blocks of 32,768, summed over the blocks: the f32 rate the card
      reaches at its power limit, not K3's function (it writes every
      score and counts nothing), and not called by the port.
 
-`--digests SRC` runs only phase 4's data, its f32 build, K3 grading and
-the storage tier's tables with the package under SRC (another tree's
-`src`, built in that tree), and prints the K2 and K3 digests and the 16
-K4/K5/K7 digests of phase 4b, for comparison with this tree's in one
-call.
+`--digests SRC` runs only phase 4's data, its f32 build, K3 grading,
+phase 4c's reordered f32 engine and the storage tier's tables with the
+package under SRC (another tree's `src`, built in that tree), and prints
+the K2, K1 and K3 digests, the torch.profiler breakdown of the f32 fused
+query and query_batch, the K6 digests and the 16 K4/K5/K7 digests of
+phase 4b, for comparison with this tree's in one call.
 
 The explained-mismatch rule: a kernel and its plain version compute the
 same f32 dot products in different orders, so a score may differ by the
@@ -310,6 +321,173 @@ def selections_agree(torch, query_mod, fused, dense, f_bounds, d_bounds,
     return n_diff, tol
 
 
+K1_EDGE_CASES = ("tile", "depth", "tau", "queries", "ties", "views", "k6")
+
+
+def k1_exact(torch, ops, ref, users, qs, thr, tab, m, label):
+    """K1 against its plain version on integer inputs (every score exact
+    in any order): r_lo/r_up bitwise, est within 1e-5 relative. Returns
+    K1's (r_lo, r_up, est), each (B, n)."""
+    got = ops.bound_ranks_batched(users, qs, thr, tab, m=m)
+    want = ref.ref_bound_ranks(users, qs, thr, tab, m)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0].T) and torch.equal(got[1], want[1].T),
+          f"K1 {label}: bounds differ from the plain version on integer "
+          "inputs")
+    err = (got[2] - want[2].T).abs()
+    check(bool((err <= 1e-5 * want[2].T.abs()).all()),
+          f"K1 {label}: est beyond 1e-5 relative (max err "
+          f"{float(err.max())})")
+    return got
+
+
+def k1_edge_inputs(torch, g, n, d, tau, m=777, ties=False):
+    """Integer users (n, d) and items (m, d), and per user an ascending
+    thresholds row (n, tau) and a descending table row: integer and
+    half-integer thresholds (integer ones tie integer scores); with
+    `ties`, thresholds drawn from the user's own scores in runs of three
+    equal values, rows 0-9 above every score and rows 10-19 below."""
+    dev = g.device
+    users = torch.randint(-4, 5, (n, d), generator=g, device=dev).float()
+    items = torch.randint(-4, 5, (m, d), generator=g, device=dev).float()
+    top = int(4 * 4 * d) + 2
+    thr = (torch.randint(-top // 4, top // 4 + 1, (n, tau), generator=g,
+                         device=dev)
+           + 0.5 * torch.randint(0, 2, (n, tau), generator=g, device=dev))
+    if ties:
+        sc = users @ items[:19].T
+        own = torch.gather(sc, 1, torch.randint(0, 19, (n, tau), generator=g,
+                                                device=dev))
+        thr = torch.where(torch.rand((n, tau), generator=g, device=dev) < 0.5,
+                          own, thr)
+        thr = torch.repeat_interleave(thr[:, :(tau + 2) // 3], 3,
+                                      dim=1)[:, :tau]
+        k = min(10, n)
+        step = torch.arange(tau, device=dev).float()
+        thr[:k] = sc[:k].max(dim=1, keepdim=True).values + 1.0 + step
+        thr[k:2 * k] = sc[k:2 * k].min(dim=1, keepdim=True).values - 1.0 \
+            - tau + step
+    thr = torch.sort(thr.float(), dim=1).values.contiguous()
+    tab = torch.flip(torch.cumsum(torch.rand((n, tau), generator=g,
+                                             device=dev), 1), [1]) + 1.0
+    return users, items, thr, tab.contiguous()
+
+
+def k1_edges(torch, ops, ref, user_scores, pruning, case):
+    """K1 (and K6) at one edge of their ring, `case` of K1_EDGE_CASES,
+    on the card: bounds bitwise the plain version's on integer inputs,
+    est within 1e-5, query 0 bitwise the same at every B, K6's kept rows
+    bitwise K1's. Raises SmokeFailure; returns a line to print."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(29 + K1_EDGE_CASES.index(case))
+    m = 777
+    if case == "tile":  # n below one tile and one past it
+        tiles = []
+        for nb in (1, 16):
+            T = user_scores.launch_config(nb, 37, 37)["tile_rows"]
+            tiles.append(T)
+            for n in (max(1, T - 3), T + 1):
+                u, it, thr, tab = k1_edge_inputs(torch, g, n, 37, 37)
+                k1_exact(torch, ops, ref, u, it[:nb].contiguous(), thr, tab,
+                         m, f"n={n} B={nb}")
+        return f"tile: n three below and one past a tile ({tiles} rows)"
+    if case == "depth":
+        for d in (1, 37, 200, 1031, 30_000):
+            n = 70 if d == 30_000 else 300
+            u, it, thr, tab = k1_edge_inputs(torch, g, n, d, 33)
+            for nb in (1, 3, 16):
+                k1_exact(torch, ops, ref, u, it[:nb].contiguous(), thr, tab,
+                         m, f"d={d} B={nb}")
+        chunk = user_scores.launch_config(16, 30_000, 33)["row_chunk"]
+        check(chunk < 30_000, "K1 rows of d=30,000 do not stream in chunks")
+        return f"depth: d in 1, 37, 200, 1031, 30000 (chunks of {chunk})"
+    if case == "tau":
+        big = 30_000
+        check(user_scores.launch_config(16, 37, big)["thresholds_staged"]
+              == 0, f"tau={big}: the thresholds rows still fit a stage")
+        check(user_scores.launch_config(16, 37, 500)["thresholds_staged"]
+              == 1, "tau=500: the thresholds rows are not staged at B=16")
+        for tau in (1, 2, 37, 500, 777, big):
+            u, it, thr, tab = k1_edge_inputs(torch, g, 100 if tau == big
+                                             else 300, 37, tau)
+            for nb in (1, 2, 16):
+                k1_exact(torch, ops, ref, u, it[:nb].contiguous(), thr, tab,
+                         m, f"tau={tau} B={nb}")
+        return f"tau: 1, 2, 37, 500, 777 and {big} (not staged)"
+    if case == "queries":  # and query 0 bitwise at every B, integer and randn
+        u, it, thr, tab = k1_edge_inputs(torch, g, 1000, 37, 37)
+        ur = torch.randn((1000, 37), generator=g, device=dev)
+        qr = torch.randn((19, 37), generator=g, device=dev)
+        thr_r = torch.sort(torch.randn((1000, 37), generator=g, device=dev)
+                           * 6.0, dim=1).values
+        first = {}
+        for nb in (1, 2, 3, 6, 16, 19):
+            got = k1_exact(torch, ops, ref, u, it[:nb].contiguous(), thr, tab,
+                           m, f"B={nb}")
+            rnd = ops.bound_ranks_batched(ur, qr[:nb].contiguous(), thr_r,
+                                          tab, m=m)
+            for key, x in (("int", got), ("randn", rnd)):
+                row0 = [y[0] for y in x]
+                first.setdefault(key, row0)
+                check(all(torch.equal(a, b) for a, b in
+                          zip(row0, first[key])),
+                      f"K1 {key}: query 0 at B={nb} differs from B=1")
+        return "queries: B in 1, 2, 3, 6, 16, 19; query 0 bitwise at every B"
+    if case == "ties":
+        for tau in (2, 37, 500):
+            u, it, thr, tab = k1_edge_inputs(torch, g, 300, 37, tau,
+                                             ties=True)
+            for nb in (1, 3, 16, 19):
+                got = k1_exact(torch, ops, ref, u, it[:nb].contiguous(), thr,
+                               tab, m, f"ties tau={tau} B={nb}")
+                check(bool((got[1][:, :10] == m + 1).all())
+                      and bool((got[0][:, 10:20] == 1.0).all()),
+                      f"K1 ties tau={tau}: rows below/above the grid are "
+                      "not at its edges")
+        return "ties: runs of equal thresholds, scores on them, above and " \
+               "below the grid"
+    if case == "views":
+        u, it, thr, tab = k1_edge_inputs(torch, g, 301, 37, 37)
+        for nb in (1, 3, 16, 19):
+            qs = it[:nb].contiguous()
+            got = k1_exact(torch, ops, ref, u[1:], qs, thr[1:], tab[1:], m,
+                           f"views B={nb}")
+            want = ops.bound_ranks_batched(u[1:].clone(), qs,
+                                           thr[1:].clone(), tab[1:].clone(),
+                                           m=m)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"K1 views B={nb}: a view from row 1 differs from copies")
+        return "views: users, thresholds and table from row 1"
+    # K6: tile sizes 256 and 100, a tail tile past n, duplicate ids
+    n = 1000
+    u, it, thr, tab = k1_edge_inputs(torch, g, n, 37, 37)
+    for bn in (256, 100):
+        nblk = -(-n // bn)
+        for nb in (1, 3, 16, 19):
+            qs = it[:nb].contiguous()
+            full = k1_exact(torch, ops, ref, u, qs, thr, tab, m,
+                            f"K6 base B={nb}")
+            for ids in ((nblk - 1, 0, 3, 3), (nblk - 1,), (2, 2, 1)):
+                t = torch.tensor(ids, dtype=torch.int32, device=dev)
+                got = ops.bound_ranks_batched_pruned(u, qs, thr, tab, t, m=m,
+                                                     block_n=bn)
+                want = ref.ref_bound_ranks_masked(u, qs, thr, tab, m, t, bn)
+                ridx = pruning.row_indices(t, bn).long()
+                past = ridx >= n
+                for a, b, c in zip(got, full, want):
+                    check(torch.equal(a[:, ~past], b[:, ridx[~past]]),
+                          f"K6 bn={bn} B={nb} ids={ids}: kept rows differ "
+                          "from K1's")
+                    check(bool((a[:, past] == float(m + 2)).all()),
+                          f"K6 bn={bn}: rows past n are not m + 2")
+                check(torch.equal(got[0], want[0].T)
+                      and torch.equal(got[1], want[1].T),
+                      f"K6 bn={bn} B={nb} ids={ids}: bounds differ from the "
+                      "plain version")
+    return "k6: block_n 256 and 100, tail tile, duplicate ids"
+
+
 def check_quant_exact(torch, ops, ref, Q, users, qs, rt, label):
     """K4/K5 against the plain version on integer inputs: exact scores
     and slacks, so r_lo/r_up agree bitwise and est to 1e-5 relative."""
@@ -343,7 +521,8 @@ def masked_launch(ops, users, qs, qn, rt, ids, block_n, out):
     """K6 (f32) or K7 launched directly into `out` (3, nk·block_n, B) over
     the already checked tile list `ids`, with the caller's ‖q‖₁ `qn`;
     the wrapper's range check of the ids syncs with the card, which
-    would serialize a timing loop."""
+    would serialize a timing loop. At f32, ids None launches K1 over
+    every row into `out` (3, n, B)."""
     step = ops.user_scores.MAX_B
     for b0 in range(0, qs.shape[0], step):
         b1 = min(qs.shape[0], b0 + step)
@@ -423,6 +602,62 @@ def quant_digests(torch, ops, query_mod, tables, users, qs):
     return lines
 
 
+def step1_digest(got) -> str:
+    """SHA-256 of a step-1 call's (r_lo, r_up, est), each (B, rows)."""
+    import hashlib
+    h = hashlib.sha256()
+    for x in got:
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def k1_digests(ops, users, qs, rt) -> list:
+    """K1's output digests on the f32 Netflix engine, B = 16 and 1."""
+    return [f"  digest K1 B={nb}: " + step1_digest(ops.bound_ranks_batched(
+        users, qs[:nb].contiguous(), rt.thresholds, rt.table, m=rt.m))
+        for nb in (B, 1)]
+
+
+def kept_tiles(torch, np, pruning, eng_p, q):
+    """The tiles the pruned engine `eng_p` launches its step 1 over for
+    queries q: phase A's kept union, bucketed → (union, ids on the card)."""
+    rt = eng_p.rank_table
+    su = eng_p.users if eng_p.stored_users is None else eng_p.stored_users
+    summ = eng_p._backend.summary_for(rt, su)
+    bn = eng_p._backend.block_size
+    keep, _ = pruning.phase_a(summ, q, k=K)
+    union = np.flatnonzero(keep.cpu().numpy().any(axis=0))
+    ids = pruning.bucket_blocks(union, n_blocks=summ.n_blocks,
+                                min_blocks=-(-K // bn))
+    return union, torch.from_numpy(ids).to(q.device)
+
+
+def k6_digests(torch, np, ops, pruning, eng_p, qs) -> list:
+    """K6's output digests over the f32 forced pruned engine's kept tiles
+    (phase 4c (ii)), B = 16 and 1."""
+    lines = []
+    rt, bn = eng_p.rank_table, eng_p._backend.block_size
+    for nb in (B, 1):
+        q = qs[:nb].contiguous()
+        _, ids = kept_tiles(torch, np, pruning, eng_p, q)
+        got = ops.bound_ranks_batched_pruned(eng_p.users, q, rt.thresholds,
+                                             rt.table, ids, m=rt.m,
+                                             block_n=bn)
+        lines.append(f"  digest K6 B={nb}, {ids.numel()} tiles: "
+                     f"{step1_digest(got)}")
+    return lines
+
+
+def reordered_build(ReverseKRanksEngine, PrunedBackend, users, items, cfg,
+                    pos, w, dev):
+    """Phase 4c's f32 build: the main path's data k-means-reordered, on
+    pruned:fused at the default cap."""
+    return ReverseKRanksEngine.build(users, items, cfg, None,
+                                     backend=PrunedBackend("fused"),
+                                     device=dev, positions=pos, weights=w,
+                                     cluster_reorder=True)
+
+
 def quant_configs(ops):
     """One line per K4/K5/K7 instance of the main path's sizes: the
     launch its launcher makes and the kernel's resources."""
@@ -444,6 +679,27 @@ def quant_configs(ops):
                         f"{c['blocks_per_sm']} blocks an SM, "
                         f"{c['registers']} registers and "
                         f"{c['local_bytes']} B local a thread")
+    return lines
+
+
+def k1_configs(ops, depths) -> list:
+    """One line per K1/K6 launch at d = 200 (B = 16 and 1) and at phase
+    3's depths (B = 16): the launch its launcher makes and the kernel's
+    resources."""
+    lines = []
+    for d, nb in [(D, B), (D, 1)] + [(d, B) for d in depths]:
+        for masked in (False, True):
+            c = ops.user_scores.launch_config(nb, d, TAU, masked)
+            lines.append(
+                f"  {'K6' if masked else 'K1'} d={d} B={nb}: tile "
+                f"{c['tile_rows']} rows, {c['stages']} stages"
+                + (", thresholds staged" if c["thresholds_staged"] else "")
+                + (f", rows in chunks of {c['row_chunk']}"
+                   if c["row_chunk"] < d else "")
+                + f", {c['smem_bytes']} B dynamic + "
+                f"{c['static_smem_bytes']} B static shared memory, "
+                f"{c['blocks_per_sm']} blocks an SM, {c['registers']} "
+                f"registers and {c['local_bytes']} B local a thread")
     return lines
 
 
@@ -731,9 +987,12 @@ def step1_need(torch, Q, ops, users, q, rt):
 
 # ------------------------------------------------------------ main path
 def digests_of(torch, exact_mod, rt_mod, ReverseKRanksEngine,
-               RankTableConfig, synthetic_embeddings, ops, query_mod):
-    """Phase 4's K3 digest and phase 4b's 16 K4/K5/K7 digests, computed
-    by the imported package on the same inputs (`--digests SRC`)."""
+               RankTableConfig, synthetic_embeddings, ops, query_mod,
+               pruning, PrunedBackend):
+    """Phase 4's K2, K1 and K3 digests and f32 query profiles, phase
+    4c (ii)'s K6 digests and phase 4b's 16 K4/K5/K7 digests, computed by
+    the imported package on the same inputs (`--digests SRC`)."""
+    import numpy as np
     dev = torch.device("cuda")
     print(f"package: {ops.__file__}")
     users, items, cfg, pos, w, qs = netflix_data(
@@ -743,7 +1002,21 @@ def digests_of(torch, exact_mod, rt_mod, ReverseKRanksEngine,
                                     positions=pos, weights=w)
     print(f"  digest K2 (the f32 table, {N} x {TAU}): "
           f"{table_digest(eng.rank_table.table)}")
+    for line in k1_digests(ops, users, qs, eng.rank_table):
+        print(line)
+    print("  f32 profile of fused query: " + device_breakdown(
+        torch, lambda: eng.query(items[QUERY_ITEM], K, C)))
+    print(f"  f32 profile of fused query_batch(B={B}): " + device_breakdown(
+        torch, lambda: eng.query_batch(qs, K, C)))
     del eng
+    eng_r = reordered_build(ReverseKRanksEngine, PrunedBackend, users, items,
+                            cfg, pos, w, dev)
+    eng_p = ReverseKRanksEngine(eng_r.users, eng_r.rank_table, cfg,
+                                backend=PrunedBackend("fused",
+                                                      max_union_frac=1.0))
+    for line in k6_digests(torch, np, ops, pruning, eng_p, qs):
+        print(line)
+    del eng_r, eng_p
     truth, exact_idx, exact_rk = grade(torch, exact_mod, users, items, qs)
     print(f"  digest K3 ({B} rank vectors, {B} reverse_k_ranks (indices, "
           f"ranks)): {k3_digest(truth, exact_idx, exact_rk)}")
@@ -794,7 +1067,8 @@ def main() -> int:
         return 1
     if other is not None:
         digests_of(torch, exact_mod, rt_mod, ReverseKRanksEngine,
-                   RankTableConfig, synthetic_embeddings, ops, query_mod)
+                   RankTableConfig, synthetic_embeddings, ops, query_mod,
+                   pruning, PrunedBackend)
         return 0
     try:
         kernels = run(torch, exact_mod, metrics, query_mod, rt_mod,
@@ -843,6 +1117,9 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
                 print(f"    ptxas: {line.strip()}")
     print(f"K4/K5/K7 launches at d={D} tau={TAU}:")
     for line in quant_configs(ops):
+        print(line)
+    print(f"K1/K6 launches at tau={TAU}:")
+    for line in k1_configs(ops, (1, 37, D_WIDE, D_LONG)):
         print(line)
     print("K3 launches:")
     k3_ds = k3_edge_depths(ops)
@@ -1226,6 +1503,13 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
           "ascending, descending and shuffled; views from row 1; ties, "
           "+-0.0) bitwise the plain version, two launches equal")
 
+    # 3g. K1/K6 at the edges of their ring (k1_edges, which the cuda tests
+    # of tests/test_torch_kernels.py and test_torch_pruning.py run too)
+    print("phase: K1/K6 at their edges, integer inputs")
+    for case in K1_EDGE_CASES:
+        print("  " + k1_edges(torch, ops, ref, ops.user_scores, pruning,
+                              case) + ": bitwise the plain version")
+
     print("phase: engine on the card vs the same engine on the CPU")
     users, items = synthetic_embeddings(3, 2048, 1024, 32, device=dev)
     cfg = RankTableConfig(tau=64)
@@ -1297,6 +1581,8 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
     mem = eng.memory_bytes()
     print(f"  digest K2 (the f32 table, {N} x {TAU}): "
           f"{table_digest(eng.rank_table.table)}")
+    for line in k1_digests(ops, users, qs, eng.rank_table):
+        print(line)
     print(f"  build {build_s:.3f} s (host clock, incl. sort, sampling and "
           f"the K2 launch); query_batch(B={B}) {qb_ms:.2f} ms; query "
           f"{q1_ms:.2f} ms; exact grading {exact_s:.2f} s for {B} queries "
@@ -1355,6 +1641,10 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
         *f_bounds, k=K, c=C, m_items=M), reps=10)
     print(f"  steady state: query_batch(B={B}) {qb_steady:.3f} ms, of which "
           f"selection {sel_steady:.3f} ms; query {q1_steady:.3f} ms")
+    print("  f32 profile of fused query: " + device_breakdown(
+        torch, lambda: eng.query(items[QUERY_ITEM], K, C)))
+    print(f"  f32 profile of fused query_batch(B={B}): " + device_breakdown(
+        torch, lambda: eng.query_batch(qs, K, C)))
 
     # 4b. the storage tier on the same data
     print(f"phase: storage tier, bf16 and int8, same data and samples, "
@@ -1503,10 +1793,8 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
     print(f"phase: block-pruned queries, n={N} m={M} d={D} tau={TAU}, "
           f"B={B}, cluster_reorder=True")
     t0 = time.perf_counter()
-    eng_r = ReverseKRanksEngine.build(users, items, cfg, None,
-                                      backend=PrunedBackend("fused"),
-                                      device=dev, positions=pos, weights=w,
-                                      cluster_reorder=True)
+    eng_r = reordered_build(ReverseKRanksEngine, PrunedBackend, users, items,
+                            cfg, pos, w, dev)
     torch.cuda.synchronize()
     build_r = time.perf_counter() - t0
     check(eng_r.user_remap is not None, "the k-means layout is the identity")
@@ -1554,6 +1842,9 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
     torch.cuda.synchronize()
     counts_p = dict(ops.LAUNCHES)
     print(f"  (ii) launches on the forced pruned path: {counts_p}")
+    for line in k6_digests(torch, np, ops, pruning, forced["f32"]["eng_p"],
+                           qs):
+        print(line)
     for name in ("k6_bound_ranks_masked", "k7_bound_ranks_bf16_masked",
                  "k7_bound_ranks_int8_masked"):
         check(counts_p[name] >= 1,
@@ -1672,13 +1963,33 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
             users, q, thr, tab, m=M), reps=20)
         pms = time_ms(torch, lambda: ref.ref_bound_ranks(
             users, q, thr, tab, M), reps=5)
+        # the launches alone, outputs given (the wrapper allocates them)
+        buf = torch.empty((3, N, nb), dtype=torch.float32, device=dev)
+        launch_ms = time_ms(torch, lambda: masked_launch(
+            ops, users, q, None, rt, None, 0, buf), reps=20)
+        del buf
+        print(f"  k1_bound_ranks[B={nb}]: the launches alone, outputs "
+              f"given, {launch_ms:.3f} ms")
         # least bytes: U and Q once; per user, a search of the sorted
         # thresholds row and the table sectors this run's lookups touch;
         # outputs
         idx = query_mod._bucketize(thr, users @ q.T)
+        table_bytes = gather_bytes(torch, idx, TAU, 4)
         k1_bytes = (4 * (N * D + nb * D) + N * search_bytes(4 * TAU, nb)
-                    + gather_bytes(torch, idx, TAU, 4) + 12 * N * nb)
+                    + table_bytes + 12 * N * nb)
         del idx
+        # beside it, the bytes were a search to read only the thresholds
+        # sectors around each count (the same cells as the table's): the
+        # least on this grid, which K1's grid guess nears at B = 1
+        near = k1_bytes - N * search_bytes(4 * TAU, nb) + table_bytes
+        print(f"  k1_bound_ranks[B={nb}]: bound were the search to read only "
+              f"the thresholds sectors around each count "
+              f"{near / HBM_BYTES_PER_S * 1e3:.3f} ms ({near} B against "
+              f"{k1_bytes} B)")
+        # operations: the product's f32 FMAs as two each, plus
+        # N·nb·⌈log2 τ⌉ for the search, which counts its comparisons, not
+        # f32 operations; against 2·N·d·nb it does not decide the bound,
+        # which the bytes set
         row(f"k1_bound_ranks[B={nb}]", replaces, counts["k1_bound_ranks"],
             err, ms, pms, k1_bytes,
             2 * N * D * nb + N * nb * math.ceil(math.log2(TAU)),
@@ -1799,11 +2110,7 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
         bn = eng_p._backend.block_size
         for nb in (B, 1):
             q = qs[:nb].contiguous()
-            keep, _ = pruning.phase_a(summ, q, k=K)
-            union = np.flatnonzero(keep.cpu().numpy().any(axis=0))
-            ids = torch.from_numpy(pruning.bucket_blocks(
-                union, n_blocks=summ.n_blocks,
-                min_blocks=-(-K // bn))).to(dev)
+            union, ids = kept_tiles(torch, np, pruning, eng_p, q)
             got = ops.bound_ranks_batched_pruned_stored(su, q, rt_s, ids,
                                                         block_n=bn)
             full = ops.bound_ranks_batched_stored(su, q, rt_s)

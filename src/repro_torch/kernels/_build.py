@@ -37,7 +37,8 @@ SIGNATURES = {
     "user_scores": {
         "k1_bound_ranks": (P, P, P, P, P, P, P, I, I, I, I, I, F, P),
         "k6_bound_ranks_masked": (P, P, P, P, P, P, P, P, I, I, I, I, I, F,
-                                  I, I, P)},
+                                  I, I, P),
+        "k1_launch_config": (I, I, I, I, P)},
     "user_scores_quant": {
         "k4_bound_ranks_bf16": (P, I, P, P, P, P, P, P, P, P, I, I, I, I, I,
                                 F, F, F, P),

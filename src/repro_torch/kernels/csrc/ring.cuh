@@ -1,5 +1,6 @@
-// The shared-memory ring's barriers and copies, shared by K3
-// (exact_rank.cu) and K4/K5/K7 (user_scores_quant.cu).
+// The shared-memory ring's barriers and copies, shared by K2 and K3
+// (table_build.cu, exact_rank.cu, through pack.cuh) and the step-1 ring
+// kernel of K1/K6 and K4/K5/K7 (step1_ring.cuh).
 //
 // A ring stage is filled by asynchronous copies that complete on the
 // stage's "full" mbarrier, and released by its consumers on its "empty"

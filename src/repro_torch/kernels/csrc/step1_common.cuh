@@ -1,9 +1,9 @@
-// Helpers shared by the step-1 kernels: K1/K6 (user_scores.cu) and
-// K4/K5/K7 (user_scores_quant.cu). Both compute a score the same way: Qᵀ
+// The score's helpers of the step-1 ring kernel (step1_ring.cuh), which
+// K1/K6 (user_scores.cu) and K4/K5/K7 (user_scores_quant.cu) instance: Qᵀ
 // in shared memory, lane l accumulating u_k·q_bk over k = l, l+32, ...
 // with one fmaf chain from 0.0f, the 32 partial sums reduced by
-// recursive halving. One definition of each piece keeps the two kernels'
-// scores bitwise the same for the same row.
+// recursive halving, so that a row's score is bitwise the same in every
+// instance.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -100,7 +100,8 @@ def bound_ranks_batched(users: torch.Tensor, qs: torch.Tensor,
     users (n, d), qs (B, d), thresholds/table (n, τ), all f32. Returns
     (r_lo, r_up, est), each (B, n), query-major (views of user-major
     (n, B) results). On CUDA, one launch per 16 queries; each reads the
-    thresholds row once for all its queries.
+    thresholds row once for all its queries (one query reads only the few
+    sectors of it that its search needs).
     """
     _check_f32_step1(users, qs, thresholds, table)
     if users.device.type == "cpu":

@@ -19,15 +19,22 @@ a row map `block_ids`, one id per `block_n` rows, with compacted outputs
 Bound on the card: memory — U once, and per user and query the few
 threshold and table sectors that a search touches (K5 reads no
 thresholds). K1 at B > 1 and K4 at every B read each thresholds row
-whole, once for all the queries of a launch. K6/K7: the same over the
-kept rows.
+whole, once for all the queries of a launch, staged with the user rows
+where it fits a stage; K1 at B = 1 reads a few 32-byte sectors of each
+thresholds row (t[0], t[τ−1] and the sectors of the column the build's
+even grid puts the score at; a bisection of the sectors only where that
+misses) and none of the rest. K6/K7: the same over the kept rows.
 
-Any d for K1/K6: Qᵀ stays in shared memory whole where it fits and
-streams through it in 256-row chunks where it does not, with the same
-scores. K4/K5/K7 stage tiles of rows through a shared-memory ring by bulk
-asynchronous copies; an array may start at any address (a view at an
-offset), and rows too long for two stages of whole rows (d past about
-25,000 at f32) stream through the ring in chunks, with the same scores.
+All five kernels are one ring kernel (`csrc/step1_ring.cuh`): a producer
+warp stages tiles of rows through a shared-memory ring by bulk
+asynchronous copies, reading a row map's entry once a tile (K6/K7), and
+eight consumer warps score them. An array may start at any 4-byte
+address (a view at an offset); Qᵀ streams through shared memory in
+256-row chunks where it does not fit whole, and rows too long for two
+stages of whole rows (d past about 25,000 at f32) stream through the ring
+in chunks, with the same scores. `launch_config` (K1/K6) and
+`quant_launch_config` (K4/K5/K7) report a launch's tile, stages and the
+kernel's registers, read on the card.
 """
 from __future__ import annotations
 
@@ -115,6 +122,17 @@ def bound_ranks_quant_kernel_call(kind: str, rows: torch.Tensor,
 CONFIG_FIELDS = ("tile_rows", "stages", "thresholds_staged", "smem_bytes",
                  "blocks_per_sm", "registers", "local_bytes", "q_rows",
                  "static_smem_bytes", "row_chunk")
+
+
+def launch_config(B: int, d: int, tau: int, masked: bool = False) -> dict:
+    """The launch a K1 (or, masked, K6) call makes at these sizes and its
+    kernel's resources, read on the card: the fields of
+    `quant_launch_config`, `thresholds_staged` 1 where the thresholds rows
+    ride the ring (more than one query, where they fit a stage)."""
+    out = (ctypes.c_int * len(CONFIG_FIELDS))()
+    _build.call("user_scores", "k1_launch_config", B, d, tau, int(masked),
+                ctypes.addressof(out))
+    return dict(zip(CONFIG_FIELDS, out))
 
 
 def quant_launch_config(kind: str, rows_f32: bool, B: int, d: int,

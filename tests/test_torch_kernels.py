@@ -104,6 +104,65 @@ def test_bound_ranks_single_matches_pallas_interpret(table):
                                rtol=EST_RTOL)
 
 
+def _edge_step1(tau, seed, n=N, d=24, B=19, m=777):
+    """Integer users and queries (exact scores), and ascending thresholds
+    rows that hold the user's own scores (scores exactly on a threshold)
+    and other integers, in runs of three equal values; rows 0-9 lie above
+    every score of the row and rows 10-19 below it. The table rows
+    descend."""
+    rng = np.random.default_rng(seed)
+    users = rng.integers(-4, 5, (n, d)).astype(np.float32)
+    qs = rng.integers(-4, 5, (B, d)).astype(np.float32)
+    sc = users @ qs.T
+    own = np.take_along_axis(sc, rng.integers(0, B, (n, tau)), axis=1)
+    thr = np.where(rng.random((n, tau)) < 0.5, own,
+                   rng.integers(-40, 41, (n, tau)))
+    thr = np.repeat(thr[:, :(tau + 2) // 3], 3, axis=1)[:, :tau]
+    step = np.arange(tau)
+    thr[:10] = sc[:10].max(axis=1, keepdims=True) + 1 + step
+    thr[10:20] = sc[10:20].min(axis=1, keepdims=True) - 1 - tau + step
+    thr = np.sort(thr, axis=1).astype(np.float32)
+    tab = np.sort(rng.uniform(1.0, m, (n, tau)), axis=1)[:, ::-1]
+    return users, qs, thr, np.ascontiguousarray(tab, np.float32), m
+
+
+@pytest.mark.parametrize("pruned", [False, True])
+@pytest.mark.parametrize("B", [1, 19])
+@pytest.mark.parametrize("tau", [1, 2, 33])
+def test_f32_step1_edges_match_pallas_interpret(tau, B, pruned):
+    """What K1/K6's search must keep, on the port's CPU path against the
+    Pallas kernels in interpret mode: τ of 1, 2 and 33; runs of equal
+    thresholds; integer scores exactly on a threshold, above the grid and
+    below it (idx = τ and 0); B = 19 (two launches on the card); K6 over a
+    tail tile past n and duplicate ids, its rows past n at m + 2.
+    r_lo/r_up bitwise, est within EST_RTOL."""
+    users, qs, thr, tab, m = _edge_step1(tau, 100 * tau + B)
+    args = (users, qs, thr, tab)
+    if pruned:
+        bn, ids = 64, np.array([4, 0, 2, 2], np.int32)
+        got = ops.bound_ranks_batched_pruned(*map(_t, args), _t(ids), m=m,
+                                             block_n=bn)
+        want = rops.bound_ranks_batched_pruned(*map(jnp.asarray, args),
+                                               jnp.asarray(ids), m=m,
+                                               block_n=bn)
+        rows = (ids[:, None] * bn + np.arange(bn)).reshape(-1)
+        live = rows < N
+        for g in got:
+            assert bool((g[:, ~live] == m + 2).all())
+    else:
+        got = ops.bound_ranks_batched(*map(_t, args), m=m)
+        want = rops.bound_ranks_batched(*map(jnp.asarray, args), m=m)
+        live = np.ones(N, bool)
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(g.numpy()[:, live],
+                                      np.asarray(w)[:, live])
+    np.testing.assert_allclose(got[2].numpy()[:, live],
+                               np.asarray(want[2])[:, live], rtol=EST_RTOL)
+    r_lo, r_up = (x.numpy()[:, live] for x in got[:2])
+    if not pruned:       # the rows off the grid sit at its edges
+        assert (r_up[:, :10] == m + 1).all() and (r_lo[:, 10:20] == 1).all()
+
+
 def _table_inputs(seed, n, S, tau, dyadic):
     rng = np.random.default_rng(seed)
     users = rng.integers(-4, 5, (n, 20)).astype(np.float32)
@@ -372,3 +431,28 @@ def test_table_build_at_its_edges_on_card(S):
         torch.testing.assert_close(ops.build_table_rows(U, Pm, Wr, T),
                                    ref.ref_table_rows(U, Pm, Wr, T),
                                    rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tile", "depth", "tau", "queries", "ties",
+                                  "views"])
+def test_k1_at_its_edges_on_card(case):
+    """K1 at the edges of its ring on the card, on integer inputs (every
+    score exact in any order): bounds bitwise the plain version's, est
+    within 1e-5. Cases (`chip_smoke.k1_edges`, which phase 3 runs too): n
+    below one tile and one past it; d in 1, 37, 200, 1,031, 30,000 (rows
+    in chunks); tau in 1, 2, 37, 500, 777 and 30,000 (thresholds rows past
+    a stage); B in 1, 2, 3, 6, 16, 19 with query 0 bitwise the same at
+    every B (integer and randn inputs); runs of equal thresholds with
+    scores on them, above and below the grid; views from row 1 of users,
+    thresholds and table. Run on a machine with a GPU:
+    PYTHONPATH=src:. python -m pytest -m cuda tests/test_torch_kernels.py"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.core import pruning
+    from repro_torch.kernels import user_scores
+    chip_smoke.k1_edges(torch, ops, ref, user_scores, pruning, case)

@@ -926,3 +926,21 @@ def test_kernels_take_a_long_row_on_card(spec):
             live = ridx < 70
             for g, f in zip(masked, got):
                 assert torch.equal(g[:, live], f[:, ridx[live]])
+
+
+@pytest.mark.cuda
+def test_k6_at_its_edges_on_card():
+    """K6 on the card at tile sizes 256 and 100, over a tail tile past n
+    and duplicate ids, at B in 1, 3, 16, 19, on integer inputs: kept rows
+    bitwise K1's, rows past n at m + 2, bounds bitwise the plain version's
+    (`chip_smoke.k1_edges`, case "k6", which phase 3 runs too). Run on a
+    machine with a GPU:
+    PYTHONPATH=src:. python -m pytest -m cuda tests/test_torch_pruning.py"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.kernels import user_scores
+    chip_smoke.k1_edges(torch, ops, ref, user_scores, P, "k6")
