@@ -79,6 +79,31 @@ Phases, each fatal on failure (exit code 1, no result line):
      query_batch, and the digests of K6's outputs over its kept tiles at
      B = 16 and 1; (iii) the mid_mixture regime reordered, with a
      hot-cluster batch: skip rate and time beside the full scan;
+  4d. the mutable index (`mutable_index_checks`): its own draw at Netflix
+     size (m + 96 items, the last 96 held out for insertion), fused
+     engines at f32, bf16 and int8 built with seed BUILD_SEED, then the
+     churn (+96 items, -64 base items, 32 users upserted, 32 appended,
+     48 deleted) on them, on phase 4c's reordered engines and on the
+     mid_mixture engine. Checks: (a) f32 delta
+     bounds = clip(static K1 bounds + a brute-force count shift over
+     the same score products, 1, m' + 1), dead rows +inf; (b) bf16 and
+     int8 delta bounds contain the f32 ones; (c) fused delta selects as
+     dense delta; (d) pruned:fused and pruned:dense select bitwise the
+     inner delta full scan; (e) insert, delete, rebuild() is a scratch
+     build with the same seed over the live items; (f) upserted rows
+     within rtol 1e-6 of a scratch build over the modified users, the
+     rest bitwise; (g) launch counts per step, each in a window of its
+     own that holds none of the checks' direct wrapper calls, exactly:
+     the churn K2 once an upsert; the delta queries K1, K4 and K5; each
+     pruned:fused delta query K6 or K7 once, pruned:dense nothing;
+     grading K3. Printed: the §5 metrics of the mutated and the rebuilt
+     engine over the live users and items (K3), static against delta
+     query times with their torch.profiler breakdowns and
+     `correction_overhead()`, each mutation's host time (the process's
+     first calls, which load their kernels, and warm ones) and the
+     rebuild's, each f32 mutation's peak device memory above what was
+     held before it, `memory_bytes()`, and the digest of the f32 fused delta
+     bounds (`digest delta`);
   5. each kernel against its plain version on the main path's inputs,
      and their times beside the card's bound (K6/K7 on phase 4c (ii)'s
      kept tiles, bounded over the kept rows; K1, K4 and K5 also their
@@ -92,8 +117,9 @@ Phases, each fatal on failure (exit code 1, no result line):
 phase 4c's reordered f32 engine and the storage tier's tables with the
 package under SRC (another tree's `src`, built in that tree), and prints
 the K2, K1 and K3 digests, the torch.profiler breakdown of the f32 fused
-query and query_batch, the K6 digests and the 16 K4/K5/K7 digests of
-phase 4b, for comparison with this tree's in one call.
+query and query_batch, the K6 digests, the 16 K4/K5/K7 digests of
+phase 4b and phase 4d's delta digest (n/a for a package without the
+mutable index), for comparison with this tree's in one call.
 
 The explained-mismatch rule: a kernel and its plain version compute the
 same f32 dot products in different orders, so a score may differ by the
@@ -298,7 +324,8 @@ def selections_agree(torch, query_mod, fused, dense, f_bounds, d_bounds,
     difference of users whose bounds agree. Returns (users selected by
     one backend only, tol)."""
     flips = (f_bounds[0] != d_bounds[0]) | (f_bounds[1] != d_bounds[1])
-    tol = float((f_bounds[2] - d_bounds[2])[~flips].abs().max())
+    same = ~flips & torch.isfinite(d_bounds[2])     # deleted users: +inf
+    tol = float((f_bounds[2] - d_bounds[2])[same].abs().max())
     key = query_mod.lemma1_key(*d_bounds, R_lo_k=dense.R_lo_k,
                                R_up_k=dense.R_up_k, c=c, m_items=m)[0]
     kth = torch.sort(key, dim=-1).values[:, k - 1]
@@ -558,11 +585,17 @@ def netflix_data(torch, rt_mod, synthetic_embeddings, RankTableConfig, dev):
     gb = torch.Generator(device=dev)
     gb.manual_seed(1)
     pos, w = rt_mod.stratified_sample_indices(M, cfg, gb)
+    return users, items, cfg, pos, w, items[netflix_qids(torch, dev)] \
+        .contiguous()
+
+
+def netflix_qids(torch, dev):
+    """The main path's B query item ids (seed 2), led by QUERY_ITEM."""
     gq = torch.Generator(device=dev)
     gq.manual_seed(2)
     qids = torch.randperm(M, generator=gq, device=dev)[:B]
     qids[0] = QUERY_ITEM
-    return users, items, cfg, pos, w, items[qids].contiguous()
+    return qids
 
 
 def quant_digests(torch, ops, query_mod, tables, users, qs):
@@ -931,10 +964,14 @@ def check_quant(torch, ops, ref, Q, users, qs, rt, label, got=None):
 
 def check_containment(torch, res, want, label):
     """Certified containment of a spec's bounds in the f32 bounds on
-    every (query, user), and of its order statistics, to 1e-4."""
-    over_lo = res.r_lo - want.r_lo            # must be <= 1e-4
-    under_up = want.r_up - res.r_up           # must be <= 1e-4
-    n_bad = int((over_lo > 1e-4).sum()) + int((under_up > 1e-4).sum())
+    every (query, user), and of its order statistics, to 1e-4; a user
+    that reads +inf (deleted) must read it in both."""
+    fin = torch.isfinite(want.r_lo) & torch.isfinite(want.r_up)
+    over_lo = (res.r_lo - want.r_lo)[fin]     # must be <= 1e-4
+    under_up = (want.r_up - res.r_up)[fin]    # must be <= 1e-4
+    n_bad = (int((over_lo > 1e-4).sum()) + int((under_up > 1e-4).sum())
+             + int((~fin & (torch.isfinite(res.r_lo)
+                            | torch.isfinite(res.r_up))).sum()))
     stats_ok = (bool((res.R_lo_k <= want.R_lo_k + 1e-4).all())
                 and bool((res.R_up_k >= want.R_up_k - 1e-4).all()))
     margin = max(float(over_lo.max()), float(under_up.max()))
@@ -985,6 +1022,475 @@ def step1_need(torch, Q, ops, users, q, rt):
     return need + 4 * (nb * d + nb), flops
 
 
+# ------------------------------------------------------ the mutable index
+BUILD_SEED = 11                    # phase 4d's builds draw their samples
+# phase 4d's churn at Netflix size: insert, delete, upsert, append and
+# delete users; the correction's widths are then 128 and 64
+CHURN = dict(n_insert=96, n_delete=64, n_upsert=32, n_append=32, n_dead=48)
+
+
+class Churn:
+    """Phase 4d's mutation script over n users and m base items: insert
+    the held-out items, delete base items (never a query item), upsert
+    users, append users, delete users (two of them appended)."""
+
+    def __init__(self, torch, g, n, m, new_items, up_vecs, app_vecs,
+                 n_delete, n_dead, keep_items):
+        dev = new_items.device
+        free = torch.ones(m, dtype=torch.bool, device=dev)
+        free[keep_items.to(dev)] = False
+        cand = torch.nonzero(free).flatten()
+        self.new_items = new_items
+        self.delete_ids = sorted(cand[torch.randperm(
+            cand.numel(), generator=g, device=dev)[:n_delete]].tolist())
+        perm = torch.randperm(n, generator=g, device=dev).tolist()
+        self.upsert_idx = sorted(perm[:up_vecs.shape[0]])
+        self.up_vecs = up_vecs
+        self.app_vecs = app_vecs
+        n_app = app_vecs.shape[0]
+        self.dead_idx = sorted(perm[up_vecs.shape[0]:up_vecs.shape[0]
+                                    + n_dead - min(2, n_app)]
+                               + list(range(n, n + min(2, n_app))))
+
+    def apply(self, torch, ops, eng, times=None, peaks=None):
+        """Run the script on `eng`; each upsert must launch K2 once on the
+        card. `times` collects the host-clock time of each call, `peaks`
+        (on the card) the peak of allocated device memory during each
+        call above what was allocated before it."""
+        on_card = eng.users.is_cuda
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        steps = (("insert_items", lambda: eng.insert_items(self.new_items)),
+                 ("delete_items", lambda: eng.delete_items(self.delete_ids)),
+                 ("upsert_users", lambda: eng.upsert_users(
+                     self.up_vecs, indices=self.upsert_idx)),
+                 ("upsert_users (append)",
+                  lambda: eng.upsert_users(self.app_vecs)),
+                 ("delete_users", lambda: eng.delete_users(self.dead_idx)))
+        for name, fn in steps:
+            k2 = ops.LAUNCHES["k2_table_build"]
+            sync()
+            if on_card and peaks is not None:
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            if times is not None:
+                times[name] = time.perf_counter() - t0
+            if on_card and peaks is not None:
+                peaks[name] = torch.cuda.max_memory_allocated() - held
+            if on_card and name.startswith("upsert"):
+                check(ops.LAUNCHES["k2_table_build"] == k2 + 1,
+                      f"{name} did not launch K2 once")
+
+
+def delta_data(torch, synthetic_embeddings, dev, n, m, d, n_insert, n_delete,
+               n_upsert, n_append, n_dead, nq, avoid=None):
+    """Phase 4d's inputs from one synthetic draw (seed 0) of n + upserted +
+    appended users and m + n_insert items: the base users and items,
+    the held-out items to insert and the user vectors to upsert and
+    append; nq live base items as queries (seed 3) and the first
+    inserted item as the single query; the mutation script, which
+    deletes no query item (nor an item id of `avoid`)."""
+    users_all, items_all = synthetic_embeddings(
+        0, n + n_upsert + n_append, m + n_insert, d, device=dev)
+    users = users_all[:n].contiguous()
+    items = items_all[:m].contiguous()
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    qids = torch.randperm(m, generator=g, device=dev)[:nq]
+    keep = qids if avoid is None else torch.cat([qids, avoid.to(dev)])
+    churn = Churn(torch, g, n, m, items_all[m:].contiguous(),
+                  users_all[n:n + n_upsert].contiguous(),
+                  users_all[n + n_upsert:].contiguous(), n_delete, n_dead,
+                  keep)
+    return users, items, items[qids].contiguous(), \
+        items_all[m:m + 1].contiguous(), churn
+
+
+def fused_delta_bounds(torch, ops, query_mod, rt_mod, snap, qs):
+    """The fused backend's corrected (r_lo, r_up, est), each (B, n): K1/
+    K4/K5, then the correction on u·q, as `QueryBackend._delta_query`."""
+    users, rt, corr = snap.query_users(), snap.rank_table, snap.corr
+    r = ops.bound_ranks_batched_stored(users, qs, rt)
+    scores, slack = query_mod.user_scores_batch(users, qs)
+    out = rt_mod.apply_delta_corrections(scores, r[0].T, r[1].T, r[2].T,
+                                         corr, slack=slack)
+    return tuple(x.T for x in out)
+
+
+def brute_force_shift(torch, snap, qs, block=8192):
+    """#{a ∈ A : u·a > u·q} − #{p ∈ D : u·p > u·q} per (query, user),
+    (B, n) f32, from the products the engine takes: U·qᵀ and U·Aᵀ, U·Dᵀ
+    whole (their shapes fix their bits), compared in blocks of users."""
+    users = snap.users
+    scores = users @ qs.T
+    base, delta = snap.base, snap.delta
+    dead = torch.from_numpy(~delta.base_live).to(users.device)
+    shift = torch.zeros(scores.shape, dtype=torch.float32,
+                        device=users.device)
+    for vecs, sign in ((delta.added_items, 1.0), (base.items[dead], -1.0)):
+        prod = users @ vecs.T
+        for u0 in range(0, users.shape[0], block):
+            s = scores[u0:u0 + block]
+            cnt = (prod[u0:u0 + block, :, None] > s[:, None, :]).sum(1)
+            shift[u0:u0 + block] += sign * cnt.to(torch.float32)
+    return shift.T
+
+
+def delta_digest(torch, dev, ReverseKRanksEngine, RankTableConfig,
+                 synthetic_embeddings, ops, query_mod, rt_mod) -> str:
+    """The digest of phase 4d's f32 fused delta bounds (B = 16), computed
+    by the imported package on the same inputs (`--digests`)."""
+    users, items, qs, _, churn = delta_data(
+        torch, synthetic_embeddings, dev, N, M, D, *CHURN.values(), B,
+        netflix_qids(torch, dev))
+    eng = ReverseKRanksEngine.build(
+        users, items, RankTableConfig(tau=TAU, omega=OMEGA, s=S_PER),
+        BUILD_SEED, backend="fused", device=dev)
+    churn.apply(torch, ops, eng)
+    return step1_digest(fused_delta_bounds(torch, ops, query_mod, rt_mod,
+                                           eng.current_snapshot(), qs))
+
+
+def mutable_index_checks(dev, *, n=N, m=M, d=D, tau=TAU,
+                         n_insert=CHURN["n_insert"],
+                         n_delete=CHURN["n_delete"],
+                         n_upsert=CHURN["n_upsert"],
+                         n_append=CHURN["n_append"], n_dead=CHURN["n_dead"],
+                         timing=True, pruned=None, avoid=None):
+    """Phase 4d: the mutable index on the card (or, for a rehearsal, the
+    CPU). Builds f32, bf16 and int8 fused engines over phase 4d's data
+    (`delta_data`) with seed BUILD_SEED, runs the churn on them and on
+    the engines of `pruned` ((label, mutable engine over n users and m
+    items, queries) triples, whose query items are in `avoid`; by
+    default the same data reordered), and checks, each fatally:
+
+      (a) the f32 fused delta bounds = clip(static + brute-force shift,
+          1, m' + 1) on every live row, dead rows +inf;
+      (b) bf16 and int8 delta bounds contain the f32 ones (1e-4);
+      (c) fused delta selects as dense delta (`selections_agree`);
+      (d) pruned:fused and pruned:dense select bitwise the inner delta
+          full scan, on every engine of `pruned`;
+      (e) insert → delete → rebuild() is a scratch build with the same
+          seed over live_items(), table bitwise, selections bitwise;
+      (f) upserted and appended rows within the reference's tolerance of
+          a scratch build over the modified users, the others bitwise;
+      (g) (on the card) each step launched exactly its kernels, counted
+          in a window of its own that holds no direct wrapper call of
+          the checks: the churn K2 once an upsert and nothing else; the
+          engines' delta queries K1 (f32, B = 16 and 1), K4 (bf16) and
+          K5 (int8) once each; each pruned:fused delta query K6 or K7
+          once, each pruned:dense one nothing; grading K3 2·B times.
+
+    Returns a report: the checks passed, the digest of the f32 fused
+    delta bounds, and the numbers printed."""
+    import torch
+    from repro_torch.core import exact as exact_mod
+    from repro_torch.core import metrics
+    from repro_torch.core import query as query_mod
+    from repro_torch.core import rank_table as rt_mod
+    from repro_torch.core.backends import PrunedBackend, get_backend
+    from repro_torch.core.engine import ReverseKRanksEngine
+    from repro_torch.core.types import RankTableConfig
+    from repro_torch.data.pipeline import synthetic_embeddings
+    from repro_torch.kernels import ops
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    report = {"checks": []}
+    users, items, qs, q1, churn = delta_data(
+        torch, synthetic_embeddings, dev, n, m, d, n_insert, n_delete,
+        n_upsert, n_append, n_dead, B, avoid)
+    cfgs = {spec: RankTableConfig(tau=tau, omega=OMEGA, s=S_PER,
+                                  storage_dtype=spec)
+            for spec in ("f32", "bf16", "int8")}
+    engines = {spec: ReverseKRanksEngine.build(
+        users, items, cfg, BUILD_SEED, backend="fused", device=dev)
+        for spec, cfg in cfgs.items()}
+    eng = engines["f32"]
+    if pruned is None:
+        pruned = []
+        for spec, cfg in cfgs.items():
+            pruned.append((f"{spec}, reordered", ReverseKRanksEngine.build(
+                users, items, cfg, BUILD_SEED, backend="fused", device=dev,
+                cluster_reorder=True), qs))
+    static = {}
+    if timing:
+        static["qb"] = time_ms(torch, lambda: eng.query_batch(qs, K, C),
+                               reps=10)
+        static["q1"] = time_ms(torch, lambda: eng.query(q1[0], K, C),
+                               reps=10)
+        static["qb_prof"] = device_breakdown(
+            torch, lambda: eng.query_batch(qs, K, C))
+        static["q1_prof"] = device_breakdown(
+            torch, lambda: eng.query(q1[0], K, C))
+        static["mem"] = eng.memory_bytes()
+
+    # (g): each step of the path counts its launches in a window of its
+    # own, zeroed just before and read just after; the checks' own
+    # wrapper calls fall outside every window
+    windows = {}
+
+    def expect(label, want):
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        windows[label] = got
+        if on_card:
+            check(got == {k: v for k, v in want.items() if v},
+                  f"(g) {label}: launches {got}, expected {want}")
+
+    per_block = lambda nq: -(-nq // ops.user_scores.MAX_B)
+    masked = {"f32": "k6_bound_ranks_masked",
+              "bf16": "k7_bound_ranks_bf16_masked",
+              "int8": "k7_bound_ranks_int8_masked"}
+
+    # the churn: the bf16 engine's is the process's first, so its calls
+    # also load their kernels (CUDA loads a kernel's module at its first
+    # launch); the f32 engine's, after the int8 one's, is timed warm,
+    # with the peak of device memory each of its calls allocates
+    ops.reset_launch_counts()
+    times = {"first": {}, "warm": {}}
+    peaks = {}
+    for spec in ("bf16", "int8", "f32"):
+        churn.apply(torch, ops, engines[spec], {
+            "bf16": times["first"], "f32": times["warm"]}.get(spec),
+            peaks if spec == "f32" else None)
+    for _, e, _ in pruned:
+        churn.apply(torch, ops, e)
+    expect(f"churn of {len(engines) + len(pruned)} engines",
+           {"k2_table_build": 2 * (len(engines) + len(pruned))})
+    snap = eng.current_snapshot()
+    corr = snap.corr
+    m_new = corr.m_new
+    print(f"  churn: +{churn.new_items.shape[0]} items, "
+          f"-{len(churn.delete_ids)} base items, {len(churn.upsert_idx)} "
+          f"users upserted, {churn.app_vecs.shape[0]} appended, "
+          f"{len(churn.dead_idx)} deleted; {eng.delta_stats()}; correction "
+          f"widths {corr.n_add} + {corr.n_del}, selection m "
+          f"{corr.selection_m()}, epoch {eng.epoch}")
+    check(eng.epoch == 5 and m_new == m + n_insert - n_delete
+          and eng.n == n + n_append, "the churn did not publish as expected")
+    ops.reset_launch_counts()
+    res = {spec: e.query_batch(qs, K, C) for spec, e in engines.items()}
+    res1 = eng.query(q1[0], K, C)
+    expect(f"delta query_batch(B={B}) at f32, bf16, int8 and query at f32",
+           {"k1_bound_ranks": per_block(B) + 1,
+            "k4_bound_ranks_bf16": per_block(B),
+            "k5_bound_ranks_int8": per_block(B)})
+    live = torch.from_numpy(snap.delta.user_live).to(dev)
+
+    # (a) the f32 fused delta bounds against the brute force, B = 16 and
+    # the inserted item alone
+    rt = snap.rank_table
+    top = float(m_new) + 1.0
+    moved = 0
+    for q, got in ((qs, res["f32"]), (q1, res1)):
+        st_lo, st_up, _ = ops.bound_ranks_batched(snap.users, q,
+                                                  rt.thresholds, rt.table,
+                                                  m=rt.m)
+        shift = brute_force_shift(torch, snap, q)
+        want_lo = torch.clamp(st_lo + shift, 1.0, top)[:, live]
+        want_up = torch.clamp(st_up + shift, 1.0, top)[:, live]
+        g_lo, g_up = got.r_lo.reshape(q.shape[0], -1), \
+            got.r_up.reshape(q.shape[0], -1)
+        check(torch.equal(g_lo[:, live], want_lo)
+              and torch.equal(g_up[:, live], want_up),
+              f"(a) f32 delta bounds at B={q.shape[0]} are not static + "
+              "the brute-force shift")
+        check(bool(torch.isinf(g_lo[:, ~live]).all())
+              and bool(torch.isinf(g_up[:, ~live]).all()),
+              "(a) a deleted user's bounds are not +inf")
+        moved += int((shift[:, live] != 0).sum())
+    r = res["f32"]
+    print(f"  (a) f32 fused delta bounds = clip(K1 static + brute-force "
+          f"count shift, 1, m'+1) on all {int(live.sum())} live rows x "
+          f"({B} queries + the inserted item alone) ({moved} cells "
+          "shifted), dead rows +inf: checked")
+    report["checks"].append("a")
+
+    # (b) containment of the quantized delta bounds
+    for spec in ("bf16", "int8"):
+        check_containment(torch, res[spec], r, f"{spec} delta vs f32 delta")
+        check(bool(torch.isinf(res[spec].r_lo[:, ~live]).all()),
+              f"(b) {spec}: a deleted user's bounds are not +inf")
+    report["checks"].append("b")
+
+    # (c) fused delta against dense delta
+    for spec, e in engines.items():
+        s = e.current_snapshot()
+        f_b = fused_delta_bounds(torch, ops, query_mod, rt_mod, s, qs)
+        d_b = query_mod._delta_bounds_batch(s.rank_table, s.query_users(),
+                                            qs, s.corr)
+        dense = get_backend("dense").query_batch(
+            s.rank_table, s.query_users(), qs, k=K, c=C, delta=s.corr)
+        n_diff, tol = selections_agree(torch, query_mod, res[spec], dense,
+                                       f_b, d_b, K, C,
+                                       s.corr.selection_m())
+        print(f"  (c) {spec} fused delta vs dense delta: {n_diff} users "
+              f"selected by one backend only, all explained (est "
+              f"tolerance {tol:.3g})")
+        del f_b, d_b
+    report["checks"].append("c")
+    report["digest"] = step1_digest(fused_delta_bounds(
+        torch, ops, query_mod, rt_mod, snap, qs))
+
+    # (d) pruned delta against the inner delta full scan, B = 16 and 1
+    for label, e, q in pruned:
+        s = e.current_snapshot()
+        for inner in ("fused", "dense"):
+            pb = PrunedBackend(inner, max_union_frac=1.0)
+            stats = []
+            for qb in (q, q[:1]):
+                ops.reset_launch_counts()
+                got = pb.query_batch(s.rank_table, s.query_users(), qb, k=K,
+                                     c=C, delta=s.corr)
+                expect(f"{label} pruned:{inner} B={qb.shape[0]}",
+                       {masked[s.rank_table.spec_kind]: per_block(
+                           qb.shape[0])} if inner == "fused" else {})
+                full = get_backend(inner).query_batch(
+                    s.rank_table, s.query_users(), qb, k=K, c=C,
+                    delta=s.corr)
+                stats.append(pb.stats)
+                check(pb.stats.fallback == "",
+                      f"(d) {label} pruned:{inner} fell back")
+                same_selection(torch, got, full,
+                               f"(d) {label} pruned:{inner} B={qb.shape[0]}")
+            print(f"  (d) {label} pruned:{inner} delta: kept union "
+                  f"{stats[0].kept_union} of {stats[0].n_blocks}, skip rate "
+                  f"{stats[0].skip_rate:.4f} (B={B}), "
+                  f"{stats[1].skip_rate:.4f} (B=1); indices, est, R_k "
+                  f"bitwise the {inner} delta full scan's at both")
+    report["checks"].append("d")
+
+    # grading over the live users and items (K3)
+    users_live = snap.users[live].contiguous()
+    items_live = eng.live_items()
+    sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    truth, exact_idx, _ = grade(torch, exact_mod, users_live, items_live, qs)
+    sync()
+    grade_s = time.perf_counter() - t0
+    expect(f"grading B={B} queries", {"k3_exact_ranks": 2 * B})
+    print("  (g) launches of each step of the delta path, each counted "
+          "alone:")
+    for label, got in windows.items():
+        print(f"    {label}: {got}")
+    if on_card:
+        report["checks"].append("g")
+    row_of = torch.cumsum(live.to(torch.int64), 0) - 1
+
+    def accuracy(result):
+        a, o = [], []
+        for b in range(qs.shape[0]):
+            idx = row_of[result.indices[b]].cpu().numpy()
+            tr, ex = truth[b].cpu().numpy(), exact_idx[b].cpu().numpy()
+            a.append(metrics.accuracy(idx, ex, tr, C))
+            o.append(metrics.overall_ratio(idx, ex, tr))
+        return sum(a) / len(a), sum(o) / len(o)
+
+    acc_delta = accuracy(r)
+    delta_q = {}
+    if timing:
+        delta_q["qb"] = time_ms(torch, lambda: eng.query_batch(qs, K, C),
+                                reps=10)
+        delta_q["q1"] = time_ms(torch, lambda: eng.query(q1[0], K, C),
+                                reps=10)
+        delta_q["qb_prof"] = device_breakdown(
+            torch, lambda: eng.query_batch(qs, K, C))
+        delta_q["q1_prof"] = device_breakdown(
+            torch, lambda: eng.query(q1[0], K, C))
+        delta_q["overhead"] = eng.correction_overhead()
+        delta_q["mem"] = {spec: e.memory_bytes()
+                          for spec, e in engines.items()}
+
+    # (f) upserted rows against a scratch build over the modified users
+    scratch = ReverseKRanksEngine.build(snap.users, items, cfgs["f32"],
+                                        BUILD_SEED, backend="fused",
+                                        device=dev)
+    got_t, want_t = snap.rank_table, scratch.rank_table
+    touched = torch.tensor(churn.upsert_idx + list(range(n, n + n_append)),
+                           device=dev)
+    others = torch.ones(got_t.n, dtype=torch.bool, device=dev)
+    others[touched] = False
+    for f in ("thresholds", "table"):
+        a, b_ = getattr(got_t, f), getattr(want_t, f)
+        check(torch.equal(a[others], b_[others]),
+              f"(f) untouched {f} rows differ from the scratch build")
+        a, b_ = a[touched], b_[touched]
+        atol = 1e-6 if f == "thresholds" else 0.0
+        check(bool((a - b_).abs().le(atol + 1e-6 * b_.abs()).all()),
+              f"(f) upserted {f} rows beyond rtol 1e-6 of the scratch "
+              "build")
+    same_rows = int((got_t.table[touched] == want_t.table[touched]).all(
+        1).logical_and((got_t.thresholds[touched]
+                        == want_t.thresholds[touched]).all(1)).sum())
+    print(f"  (f) upserted and appended rows within rtol 1e-6 of a scratch "
+          f"build over the modified users ({same_rows} of "
+          f"{touched.numel()} bitwise); the other {int(others.sum())} rows "
+          "bitwise")
+    report["checks"].append("f")
+    del scratch
+
+    # (e) rebuild against a scratch build over the live items
+    sync()
+    t0 = time.perf_counter()
+    rec = eng.rebuild()
+    sync()
+    rebuild_s = time.perf_counter() - t0
+    after = eng.current_snapshot()
+    check(rec is not None and after.corr is not None
+          and after.corr.n_add == 0 and after.corr.n_del == 0
+          and after.rank_table.m == m_new,
+          "(e) the rebuild did not drain the item delta")
+    scratch = ReverseKRanksEngine.build(snap.users, items_live, cfgs["f32"],
+                                        BUILD_SEED, backend="fused",
+                                        device=dev)
+    for f in ("thresholds", "table"):
+        check(torch.equal(getattr(after.rank_table, f),
+                          getattr(scratch.rank_table, f)),
+              f"(e) rebuilt {f} differ from a scratch build")
+    scratch.delete_users(churn.dead_idx)
+    res_rb = eng.query_batch(qs, K, C)
+    same_selection(torch, res_rb, scratch.query_batch(qs, K, C),
+                   "(e) rebuilt engine vs scratch build")
+    acc_rebuilt = accuracy(res_rb)
+    print(f"  (e) rebuild {rebuild_s:.3f} s (host clock; {rec.build_s:.3f} "
+          f"s build, {rec.swap_s:.4f} s swap): table bitwise a scratch build"
+          f" with seed {BUILD_SEED} over the {items_live.shape[0]} live "
+          "items; selections bitwise")
+    report["checks"].append("e")
+    report["checks"].sort()
+    print(f"  §5 over the live users and items (K3, {2 * B} launches, "
+          f"{grade_s:.2f} s): mutated f32 fused accuracy {acc_delta[0]:.4f} "
+          f"overall ratio {acc_delta[1]:.4f}; rebuilt accuracy "
+          f"{acc_rebuilt[0]:.4f} overall ratio {acc_rebuilt[1]:.4f}")
+    check(res1.indices.shape == (K,), "query(q) of an inserted item")
+    if timing:
+        for when, label in (("first", "first calls (bf16 engine)"),
+                            ("warm", "warm (f32 engine)")):
+            print(f"  host clock of each mutation call (synced), {label}: "
+                  + "; ".join(f"{k} {v * 1e3:.2f} ms"
+                              for k, v in times[when].items()))
+        print("  peak device memory each f32 mutation call allocated above "
+              "what was held before it: " + "; ".join(
+                  f"{k} {v / 2**20:.1f} MiB" for k, v in peaks.items()))
+        print(f"  f32 fused query_batch(B={B}) static {static['qb']:.3f} ms, "
+              f"delta {delta_q['qb']:.3f} ms; query static "
+              f"{static['q1']:.3f} ms, delta {delta_q['q1']:.3f} ms; "
+              f"correction_overhead() {delta_q['overhead']:.4f}")
+        print(f"  profile static query_batch: {static['qb_prof']}")
+        print(f"  profile delta query_batch: {delta_q['qb_prof']}")
+        print(f"  profile static query: {static['q1_prof']}")
+        print(f"  profile delta query: {delta_q['q1_prof']}")
+        print(f"  memory_bytes static f32 {static['mem']}; with the "
+              "correction " + ", ".join(
+                  f"{k} {v}" for k, v in delta_q["mem"].items()))
+    report.update(static=static, delta=delta_q, times=times, peaks=peaks,
+                  launches=windows,
+                  rebuild_s=rebuild_s, accuracy=(acc_delta, acc_rebuilt))
+    return report
+
+
 # ------------------------------------------------------------ main path
 def digests_of(torch, exact_mod, rt_mod, ReverseKRanksEngine,
                RankTableConfig, synthetic_embeddings, ops, query_mod,
@@ -1030,6 +1536,14 @@ def digests_of(torch, exact_mod, rt_mod, ReverseKRanksEngine,
         tables[spec] = (eng.stored_users, eng.rank_table)
     for line in quant_digests(torch, ops, query_mod, tables, users, qs):
         print(line)
+    del tables
+    if hasattr(ReverseKRanksEngine, "insert_items"):
+        print(f"  digest delta (phase 4d's f32 fused delta bounds, B={B}): "
+              + delta_digest(torch, dev, ReverseKRanksEngine,
+                             RankTableConfig, synthetic_embeddings, ops,
+                             query_mod, rt_mod))
+    else:
+        print("  digest delta: n/a (this package has no mutable index)")
 
 
 def main() -> int:
@@ -1928,7 +2442,27 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
           f"{ids_np.size} tiles {t_b:.3f} ms; finish_compacted {t_c:.3f} "
           f"ms, of which each of its two materialize calls {t_m:.3f} ms; "
           f"select_topk alone on the compacted arrays {t_s:.3f} ms")
-    del eng_m, fused_m, mu_, mi_, bounds
+    del fused_m, bounds
+
+    # 4d. the mutable index: its own data and engines, then phase 4c's
+    # reordered engines and the mid_mixture engine, all churned
+    print(f"phase: mutable index, n={N} m={M} d={D} tau={TAU}, B={B} and "
+          f"1, churn {CHURN}")
+    t0 = time.perf_counter()
+    pruned_cases = [(f"4c reordered {spec}", ReverseKRanksEngine(
+        f["eng_p"].users, f["eng_p"].rank_table, f["eng_p"].config,
+        items=items, positions=pos, weights=w), qs)
+        for spec, f in forced.items()]
+    pruned_cases.append(("4c (iii) mid_mixture, hot batch", eng_m, qs_hot))
+    delta_report = mutable_index_checks(dev, pruned=pruned_cases,
+                                        avoid=netflix_qids(torch, dev))
+    del pruned_cases, eng_m, mu_, mi_
+    print(f"  digest delta (phase 4d's f32 fused delta bounds, B={B}): "
+          f"{delta_report['digest']}")
+    print(f"  phase 4d: checks {''.join(delta_report['checks'])} passed, "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(delta_report["checks"] == list("abcdefg"),
+          "phase 4d did not run every check")
 
     # 5. kernels against plain versions on the main path's inputs, timed
     print("phase: kernels vs plain at the main path's shapes, timed")

@@ -1,4 +1,4 @@
-"""Pluggable query-execution backends (static index only).
+"""Pluggable query-execution backends.
 
 Counterpart of `repro/core/backends.py`, with two registered backends:
 
@@ -20,6 +20,13 @@ and one registered wrapper:
 `bound_ranks` takes a (B, d) block and returns (B, n) bounds; `select`
 realizes §4.3 steps 2-3; `query_batch` composes the two. Wrapper specs
 `"<prefix>:<inner>"` resolve through `register_wrapper`.
+
+On a mutated index `query_batch(..., delta=DeltaCorrection)` folds the
+delta buffer in between step 1 and the selection, through the one
+shared `rank_table.apply_delta_corrections`, so the backends cannot
+drift apart: dense in `query.query_batch_delta`, fused (and any backend
+with full (B, n) bounds) in `_delta_query`, the pruned wrapper in phase
+B on the kept rows.
 """
 from __future__ import annotations
 
@@ -32,8 +39,8 @@ import torch
 from repro_torch.core import pruning
 from repro_torch.core import query as query_mod
 from repro_torch.core import rank_table as rt_mod
-from repro_torch.core.types import QueryResult, RankTable, \
-    RankTableConfig, take_user_rows
+from repro_torch.core.types import DeltaCorrection, QueryResult, \
+    RankTable, RankTableConfig, take_user_rows
 from repro_torch.kernels import ops
 
 
@@ -61,8 +68,25 @@ class QueryBackend:
         return rt_mod.build_rank_table(users, items, cfg, generator,
                                        positions=positions, weights=weights)
 
+    def _delta_query(self, rt: RankTable, users, qs: torch.Tensor, *,
+                     k: int, c: float, delta: DeltaCorrection
+                     ) -> QueryResult:
+        """The delta path of a backend with full (B, n) bounds: its step
+        1, the shared correction on u·q (one more (n, d) × (d, B) f32
+        product, with the slack of quantized users), then the selection
+        at `delta.selection_m()`."""
+        r_lo, r_up, est = self.bound_ranks(rt, users, qs)   # (B, n)
+        scores, slack = query_mod.user_scores_batch(users, qs)  # (n, B)
+        r_lo, r_up, est = rt_mod.apply_delta_corrections(
+            scores, r_lo.T, r_up.T, est.T, delta, slack=slack)
+        return query_mod.select_topk(r_lo.T, r_up.T, est.T, k=k, c=c,
+                                     m_items=delta.selection_m())
+
     def query_batch(self, rt: RankTable, users: torch.Tensor,
-                    qs: torch.Tensor, *, k: int, c: float) -> QueryResult:
+                    qs: torch.Tensor, *, k: int, c: float,
+                    delta: Optional[DeltaCorrection] = None) -> QueryResult:
+        if delta is not None:
+            return self._delta_query(rt, users, qs, k=k, c=c, delta=delta)
         r_lo, r_up, est = self.bound_ranks(rt, users, qs)
         return self.select(rt, r_lo, r_up, est, k=k, c=c)
 
@@ -123,6 +147,12 @@ class DenseBackend(QueryBackend):
     def bound_ranks(self, rt, users, qs):
         return query_mod.bound_ranks_batch(rt, users, qs)
 
+    def query_batch(self, rt, users, qs, *, k, c, delta=None):
+        if delta is None:
+            return super().query_batch(rt, users, qs, k=k, c=c)
+        # the correction reuses step 1's score product
+        return query_mod.query_batch_delta(rt, users, qs, delta, k, c)
+
 
 @register_backend("fused")
 class FusedBackend(QueryBackend):
@@ -148,12 +178,20 @@ class PrunedBackend(QueryBackend):
                      (`ops.bound_ranks_batched_pruned_stored`);
       other inners   the inner's `bound_ranks` on the gathered rows.
 
+    On a mutated index (`delta=`) phase A widens its envelopes by the
+    delta's padded widths and counts only live users, and phase B
+    corrects the kept rows (`pruning.pruned_query_batch_delta`, or the
+    kernel's bounds then `pruning.delta_finish_compacted`).
+
     Summaries are cached by the identity of (users, thresholds, table),
     four generations, each entry holding references to its arrays so
-    that their ids cannot be reused while it lives. Phase A's keep mask
-    is read on the host: when its union exceeds `max_union_frac` of the
-    blocks, the inner backend runs the full scan instead
-    (`stats.fallback = "dense"`). `use_cones=False` prunes on the
+    that their ids cannot be reused while it lives; a mutation publishes
+    new arrays, so it keys a new summary. Phase A's keep mask is read on
+    the host: when its union exceeds `max_union_frac` of the blocks, the
+    inner backend runs the full scan instead (`stats.fallback =
+    "dense"`); when the delta exceeds `pruning.DELTA_GUARD` of the base
+    items, phase A is skipped and the inner runs the full scan
+    (`stats.fallback = "delta-guard"`). `use_cones=False` prunes on the
     coordinate boxes alone.
     """
 
@@ -196,11 +234,27 @@ class PrunedBackend(QueryBackend):
             self._summaries.popitem(last=False)
         return summary
 
-    def query_batch(self, rt, users, qs, *, k, c):
+    def query_batch(self, rt, users, qs, *, k, c, delta=None):
         n = users.shape[0]
         bs = self.block_size
         nb = -(-n // bs)
-        keep, _ = pruning.phase_a(self.summary_for(rt, users), qs, k=k)
+        if delta is not None and (delta.n_add + delta.n_del) / max(
+                rt.m, 1) > pruning.DELTA_GUARD:
+            # the envelopes widened by the (padded) delta widths would
+            # keep nearly every block: run the inner full scan
+            self.stats = pruning.PruneStats(
+                n_blocks=nb, kept_union=nb, kept_per_query=1.0,
+                fallback="delta-guard")
+            return self.inner.query_batch(rt, users, qs, k=k, c=c,
+                                          delta=delta)
+        summary = self.summary_for(rt, users)
+        if delta is None:
+            keep, _ = pruning.phase_a(summary, qs, k=k)
+        else:
+            keep, _ = pruning.phase_a(summary, qs, k=k, n_add=delta.n_add,
+                                      n_del=delta.n_del,
+                                      user_live=delta.user_live,
+                                      block_size=bs)
         keep_np = keep.cpu().numpy()                        # host sync
         union = np.flatnonzero(keep_np.any(axis=0))
         per_q = float(keep_np.mean())
@@ -208,7 +262,8 @@ class PrunedBackend(QueryBackend):
             n_blocks=nb, kept_union=int(union.size), kept_per_query=per_q)
         if union.size > self.max_union_frac * nb:
             self.stats.fallback = "dense"
-            return self.inner.query_batch(rt, users, qs, k=k, c=c)
+            return self.inner.query_batch(rt, users, qs, k=k, c=c,
+                                          delta=delta)
         ids_np = pruning.bucket_blocks(union, n_blocks=nb,
                                        min_blocks=-(-k // bs))
         ids = torch.from_numpy(ids_np).to(qs.device)
@@ -217,8 +272,12 @@ class PrunedBackend(QueryBackend):
         blk_valid = torch.from_numpy(
             np.arange(ids_np.size) < max(union.size, 1)).to(qs.device)
         if type(self.inner) is DenseBackend:
-            return pruning.pruned_query_batch(rt, users, qs, ids, blk_valid,
-                                              keep, k, c, block_size=bs)
+            if delta is None:
+                return pruning.pruned_query_batch(
+                    rt, users, qs, ids, blk_valid, keep, k, c, block_size=bs)
+            return pruning.pruned_query_batch_delta(
+                rt, users, qs, delta, ids, blk_valid, keep, k, c,
+                block_size=bs)
         if type(self.inner) is FusedBackend:
             r_lo, r_up, est = ops.bound_ranks_batched_pruned_stored(
                 users, qs.contiguous(), rt, ids, block_n=bs)
@@ -226,8 +285,12 @@ class PrunedBackend(QueryBackend):
             g = torch.clamp(pruning.row_indices(ids, bs), max=n - 1)
             r_lo, r_up, est = self.inner.bound_ranks(
                 rt.take_rows(g), take_user_rows(users, g), qs)
-        return pruning.finish_compacted(r_lo, r_up, est, ids, blk_valid,
-                                        keep, rt.m, k, c, n, bs)
+        if delta is None:
+            return pruning.finish_compacted(r_lo, r_up, est, ids, blk_valid,
+                                            keep, rt.m, k, c, n, bs)
+        return pruning.delta_finish_compacted(users, qs, delta, r_lo, r_up,
+                                              est, ids, blk_valid, keep, k,
+                                              c, n, bs)
 
 
 @register_wrapper("pruned")

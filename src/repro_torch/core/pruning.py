@@ -33,9 +33,12 @@ the same quantities in the same operation order.
 row order that makes blocks tight (`ReverseKRanksEngine.build(...,
 cluster_reorder=True)`).
 
-Not ported here: the delta path (`pruned_query_batch_delta`,
-`delta_finish_compacted`, the `with_live` phase A), which waits for the
-mutable index, and `PruneStats.publish`, which waits for the telemetry.
+On a mutated index (`repro_torch.index`) phase A widens the envelopes
+by the padded delta widths and leaves deleted users out of R̂'s live
+counts, and phase B folds the delta correction into the kept rows
+(`pruned_query_batch_delta`, `delta_finish_compacted`).
+
+Not ported here: `PruneStats.publish`, which waits for the telemetry.
 """
 from __future__ import annotations
 
@@ -47,11 +50,16 @@ import torch
 
 from repro_torch.core.query import _bucketize, lemma1_select, \
     lookup_bounds_batch, query_l1, user_scores_batch
-from repro_torch.core.types import EPS_BF16, QueryResult, RankTable, \
-    StoredUsers, _I8_TRANSFORM_PAD, kth_smallest, take_user_rows
+from repro_torch.core.types import EPS_BF16, DeltaCorrection, QueryResult, \
+    RankTable, StoredUsers, _I8_TRANSFORM_PAD, kth_smallest, take_user_rows
 
 # Summary block size, the tile that a block id names in K6/K7.
 DEFAULT_BLOCK = 256
+
+# Delta share of the base items, (n_add + n_del) / m at the padded
+# widths, above which a pruned query skips phase A and runs the inner
+# backend's full scan (`PruneStats.fallback = "delta-guard"`).
+DELTA_GUARD = 0.25
 
 # Relative widening of a certified score range per unit of dimension:
 # f32 dot-product rounding is bounded by ~d·2^-24 of Σ|u_j·q_j|; 4e-7·d
@@ -121,7 +129,8 @@ class PruneStats:
     n_blocks: int = 0            # summary blocks in the index
     kept_union: int = 0          # blocks phase B executed (union over B)
     kept_per_query: float = 0.0  # mean per-query kept fraction
-    fallback: str = ""           # "" (pruned) or "dense" (union too big)
+    fallback: str = ""           # "" (pruned), "dense" (union too big)
+    # or "delta-guard" (delta too large to prune)
 
     @property
     def union_fraction(self) -> float:
@@ -390,7 +399,10 @@ def _envelope_bounds(summary: BlockSummary, qs: torch.Tensor
     return r_lo_opt, r_up_pes
 
 
-def phase_a(summary: BlockSummary, qs: torch.Tensor, *, k: int
+def phase_a(summary: BlockSummary, qs: torch.Tensor, *, k: int,
+            n_add: int = 0, n_del: int = 0,
+            user_live: Optional[torch.Tensor] = None,
+            block_size: int = DEFAULT_BLOCK
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Coarse pass: which blocks can hold answers, per query.
 
@@ -401,9 +413,18 @@ def phase_a(summary: BlockSummary, qs: torch.Tensor, *, k: int
     is at most the bound of the block where the count crosses k. Any
     order of tied bounds gives the same R̂, so the sort need not be
     stable.
+
+    On a mutated index `n_add`/`n_del` (the correction's padded widths)
+    widen r↑ and r↓, and `user_live` (n,) subtracts each block's deleted
+    rows (blocks of `block_size`) from its live count.
     """
     r_lo_opt, r_up_pes = _envelope_bounds(summary, qs)      # (nb, B)
+    r_lo_opt = r_lo_opt - float(n_del)
+    r_up_pes = r_up_pes + float(n_add)
     live = summary.rows
+    if user_live is not None:
+        live = live - _per_block((~user_live).to(torch.int32), block_size,
+                                 "sum").to(live.dtype)
     vals, order = torch.sort(r_up_pes, dim=0)
     cum = torch.cumsum(live[order], dim=0)                  # (nb, B)
     pos = torch.clamp((cum < k).sum(dim=0), max=summary.n_blocks - 1)
@@ -517,15 +538,21 @@ def finish_compacted(r_lo_c: torch.Tensor, r_up_c: torch.Tensor,
 
 
 def _gathered_bounds(rt: RankTable, users, qs: torch.Tensor,
-                     block_ids: torch.Tensor, block_size: int
+                     block_ids: torch.Tensor, block_size: int,
+                     corr: Optional[DeltaCorrection] = None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Compacted dense step 1: gather the kept rows (the int8 and slack
     vectors with them), one (nk·bs, d) × (d, B) product, one pass over
-    the kept threshold/table rows. Returns (B, nk·bs) arrays."""
+    the kept threshold/table rows, and on a mutated index the delta
+    correction of those rows. Returns (B, nk·bs) arrays."""
     n = users.shape[0]
     g = torch.clamp(row_indices(block_ids, block_size), max=n - 1)
     scores, slack = user_scores_batch(take_user_rows(users, g), qs)
     r_lo, r_up, est = lookup_bounds_batch(rt.take_rows(g), scores, slack)
+    if corr is not None:
+        from repro_torch.core.rank_table import apply_delta_corrections
+        r_lo, r_up, est = apply_delta_corrections(
+            scores, r_lo, r_up, est, corr.take_rows(g), slack=slack)
     return r_lo.T, r_up.T, est.T
 
 
@@ -538,3 +565,36 @@ def pruned_query_batch(rt: RankTable, users, qs: torch.Tensor,
                                        block_size)
     return finish_compacted(r_lo, r_up, est, block_ids, blk_valid, keep_q,
                             rt.m, k, c, users.shape[0], block_size)
+
+
+def pruned_query_batch_delta(rt: RankTable, users, qs: torch.Tensor,
+                             corr: DeltaCorrection, block_ids: torch.Tensor,
+                             blk_valid: torch.Tensor, keep_q: torch.Tensor,
+                             k: int, c: float,
+                             block_size: int = DEFAULT_BLOCK) -> QueryResult:
+    """Dense phase B over a mutated index: compacted step 1 with the
+    correction, then the compacted selection at `corr.selection_m()`."""
+    r_lo, r_up, est = _gathered_bounds(rt, users, qs, block_ids,
+                                       block_size, corr=corr)
+    return finish_compacted(r_lo, r_up, est, block_ids, blk_valid, keep_q,
+                            corr.selection_m(), k, c, users.shape[0],
+                            block_size)
+
+
+def delta_finish_compacted(users, qs: torch.Tensor, corr: DeltaCorrection,
+                           r_lo_c: torch.Tensor, r_up_c: torch.Tensor,
+                           est_c: torch.Tensor, block_ids: torch.Tensor,
+                           blk_valid: torch.Tensor, keep_q: torch.Tensor,
+                           k: int, c: float, n: int, block_size: int
+                           ) -> QueryResult:
+    """The delta tail of compacted-bounds backends (K6/K7 on the fused
+    path, generic inners): the correction needs u·q of the kept rows,
+    one gathered product as the full scan's `_delta_query` takes one,
+    then the correction and the compacted selection."""
+    from repro_torch.core.rank_table import apply_delta_corrections
+    g = torch.clamp(row_indices(block_ids, block_size), max=n - 1)
+    scores, slack = user_scores_batch(take_user_rows(users, g), qs)
+    r_lo, r_up, est = apply_delta_corrections(
+        scores, r_lo_c.T, r_up_c.T, est_c.T, corr.take_rows(g), slack=slack)
+    return finish_compacted(r_lo.T, r_up.T, est.T, block_ids, blk_valid,
+                            keep_q, corr.selection_m(), k, c, n, block_size)

@@ -24,8 +24,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.types import EPS_BF16, QueryResult, RankTable, \
-    StoredUsers, _I8_MAX, _I8_TRANSFORM_PAD, f32_scalar, kth_smallest
+from repro_torch.core.types import EPS_BF16, DeltaCorrection, QueryResult, \
+    RankTable, StoredUsers, _I8_MAX, _I8_TRANSFORM_PAD, f32_scalar, \
+    kth_smallest
 
 
 def _bucketize(thresholds: torch.Tensor, uq: torch.Tensor) -> torch.Tensor:
@@ -330,6 +331,31 @@ def query_batch(rt: RankTable, users: torch.Tensor, qs: torch.Tensor,
     qs is (B, d) and every field gains a leading B axis."""
     r_lo, r_up, est = bound_ranks_batch(rt, users, qs)
     return select_topk(r_lo, r_up, est, k=k, c=c, m_items=rt.m)
+
+
+def _delta_bounds_batch(rt: RankTable, users, qs: torch.Tensor,
+                        corr: DeltaCorrection
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Step 1 plus the delta correction for a (B, d) block → corrected
+    (r_lo, r_up, est), each (B, n). The correction reuses step 1's scores
+    and slack."""
+    from repro_torch.core.rank_table import apply_delta_corrections
+    scores, slack = user_scores_batch(users, qs)            # (n, B)
+    r_lo, r_up, est = lookup_bounds_batch(rt, scores, slack)
+    r_lo, r_up, est = apply_delta_corrections(scores, r_lo, r_up, est, corr,
+                                              slack=slack)
+    return r_lo.T, r_up.T, est.T
+
+
+def query_batch_delta(rt: RankTable, users, qs: torch.Tensor,
+                      corr: DeltaCorrection, k: int, c: float
+                      ) -> QueryResult:
+    """`query_batch` over a mutated index: step 1, the delta correction
+    (`rank_table.apply_delta_corrections`), then the selection with the
+    delta-widened class offset `corr.selection_m()`."""
+    r_lo, r_up, est = _delta_bounds_batch(rt, users, qs, corr)
+    return select_topk(r_lo, r_up, est, k=k, c=c,
+                       m_items=corr.selection_m())
 
 
 def squeeze_result(res: QueryResult) -> QueryResult:

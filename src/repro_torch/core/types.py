@@ -1,18 +1,20 @@
 """Core data types of the port.
 
 Counterpart of `repro/core/types.py`: the same configuration fields and
-validation, the same `RankTable` / `QueryResult` / `StoredUsers` fields,
-and the storage tier (`StorageSpec`): f32, bf16, or int8 with per-row
-scales. A quantized table and quantized users carry certified errors
-that the query folds into its bounds, so that for every user and query
+validation, the same `RankTable` / `QueryResult` / `StoredUsers` /
+`DeltaCorrection` fields, and the storage tier (`StorageSpec`): f32,
+bf16, or int8 with per-row scales. A quantized table and quantized users
+carry certified errors that the query folds into its bounds, so that for
+every user and query
 
     r↓_spec ≤ r↓_f32   and   r↑_spec ≥ r↑_f32
 
 (the reference's module docstring gives the proof obligation term by
-term). `pack_table` and `pack_users` are the one path from f32 arrays to
-stored ones. Its int8 codes, scales and offsets, its bf16 casts and its
-user rows are bitwise the reference's on the same inputs; `thr_dev` is
-measured against the grid rounded once from double (see `pack_table`).
+term). `pack_table`, `pack_users` and `pack_scores` are the one path
+from f32 arrays to stored ones. Their int8 codes, scales and offsets,
+their bf16 casts and the user rows are bitwise the reference's on the
+same inputs; `thr_dev` is measured against the grid rounded once from
+double (see `pack_table`).
 """
 from __future__ import annotations
 
@@ -187,6 +189,31 @@ class StorageSpec:
         return StoredUsers(rows=rows.to(torch.int8), scale=scale,
                            row_slack=0.5 * scale)
 
+    def pack_scores(self, scores: torch.Tensor, pad: int
+                    ) -> tuple[torch.Tensor, Optional[torch.Tensor],
+                               Optional[torch.Tensor]]:
+        """Materialize per-row ascending delta score sets (n, t) in spec
+        space, left-padded with `pad` absent-sentinel columns: −inf at
+        f32 and bf16, −128 at int8, which no count ever includes.
+
+        Returns (rows, scale, offset); scale and offset (n, 1) f32 are
+        per-row affine int8 parameters, None otherwise. The quantization
+        is monotone per row, so the rows stay sorted."""
+        scores = scores.to(torch.float32)
+        if self.kind == "int8":
+            rows, scale, off = _quant_affine_rows(scores)
+            fill = -128
+        else:
+            rows = scores if self.kind == "f32" else scores.to(
+                torch.bfloat16)
+            scale = off = None
+            fill = -torch.inf
+        if pad:
+            rows = torch.cat([torch.full((rows.shape[0], pad), fill,
+                                         dtype=rows.dtype,
+                                         device=rows.device), rows], dim=1)
+        return rows, scale, off
+
 
 @dataclasses.dataclass(frozen=True)
 class RankTableConfig:
@@ -277,6 +304,90 @@ class RankTable(NamedTuple):
                          table=self.table[idx], m=self.m,
                          **{f: g(getattr(self, f))
                             for f in self._QUANT_FIELDS})
+
+    def set_rows(self, idx: torch.Tensor, rows: "RankTable") -> "RankTable":
+        """A new table with the packed rows `rows` (`StorageSpec.
+        pack_table`) in rows `idx`: the upsert path. Out of place, so
+        that a snapshot that still holds this table sees it unchanged
+        (and the pruned backend's summaries, cached by tensor identity,
+        stay valid); the int8 vectors are per row, so the update stays
+        local."""
+        s = lambda a, b: None if a is None else a.index_copy(0, idx, b)
+        return RankTable(
+            thresholds=s(self.thresholds,
+                         rows.thresholds.to(self.thresholds.dtype)),
+            table=s(self.table, rows.table.to(self.table.dtype)), m=self.m,
+            **{f: s(getattr(self, f), getattr(rows, f))
+               for f in self._QUANT_FIELDS})
+
+    def append_rows(self, rows: "RankTable") -> "RankTable":
+        """A new table with the packed rows `rows` appended (user appends)."""
+        c = lambda a, b: None if a is None else torch.cat([a, b])
+        return RankTable(
+            thresholds=c(self.thresholds,
+                         rows.thresholds.to(self.thresholds.dtype)),
+            table=c(self.table, rows.table.to(self.table.dtype)), m=self.m,
+            **{f: c(getattr(self, f), getattr(rows, f))
+               for f in self._QUANT_FIELDS})
+
+
+class DeltaCorrection(NamedTuple):
+    """Query-time correction for a mutated index (`repro_torch.index`).
+
+    The rank table is built over a frozen base item set P₀; inserted
+    items A and deleted base items D shift every rank exactly:
+
+        r(q, u, P') = r(q, u, P₀) + #{a ∈ A : u·a > u·q}
+                                  − #{p ∈ D : u·p > u·q}
+
+    for P' = (P₀ \\ D) ∪ A, so the bounds move by exact counts
+    (`rank_table.apply_delta_corrections`). The score sets are sorted per
+    row, so a count is one search per (user, query).
+
+    add_scores: (n, n_add) ascending per row, u·a for every a ∈ A, in
+                spec space (f32, bf16, or int8 codes under (add_scale,
+                add_off)), left-padded with the absent sentinel (−inf,
+                −128) to a power-of-two width. Quantized sets give
+                certified count ranges instead of exact counts.
+    del_scores: (n, n_del) the same for every p ∈ D.
+    user_live:  (n,) bool; False rows are deleted users, whose bounds
+                and estimate read +inf.
+    m_new:      |P'| = |P₀| − |D| + |A| as a Python int.
+    add_scale/add_off/del_scale/del_off: (n, 1) f32, int8 only.
+    """
+
+    add_scores: torch.Tensor
+    del_scores: torch.Tensor
+    user_live: torch.Tensor
+    m_new: int
+    add_scale: Optional[torch.Tensor] = None
+    add_off: Optional[torch.Tensor] = None
+    del_scale: Optional[torch.Tensor] = None
+    del_off: Optional[torch.Tensor] = None
+
+    @property
+    def n_add(self) -> int:
+        return self.add_scores.shape[1]
+
+    @property
+    def n_del(self) -> int:
+        return self.del_scores.shape[1]
+
+    def take_rows(self, idx: torch.Tensor) -> "DeltaCorrection":
+        """Row-gather the per-user fields (pruned phase B)."""
+        g = lambda a: None if a is None else a[idx]
+        return DeltaCorrection(
+            add_scores=self.add_scores[idx], del_scores=self.del_scores[idx],
+            user_live=self.user_live[idx], m_new=self.m_new,
+            add_scale=g(self.add_scale), add_off=g(self.add_off),
+            del_scale=g(self.del_scale), del_off=g(self.del_off))
+
+    def selection_m(self) -> int:
+        """The `m_items` of the §4.3 selection key on the delta path: the
+        class offset must exceed the shifted estimate range
+        [1 − n_del, m + 1 + n_add], whose width is at most m_new + 2·n_del
+        for the PADDED widths, so the padding is part of the result."""
+        return self.m_new + 2 * self.n_del
 
 
 class QueryResult(NamedTuple):
