@@ -42,7 +42,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      30,000, B = 1 to 19, runs of equal thresholds with scores on them
      and off the grid, views from row 1, K6 at block_n 256 and 100 with a
      tail tile and duplicate ids) bitwise their plain versions on integer
-     inputs;
+     inputs; the elastic entries of K1, K4 and K5, which read their row
+     count on the device (`elastic_entry_checks`: every kind, B = 1, 16
+     and 19, n_valid = 1, T - 1, T + 1, n and the capacity), rows below
+     n_valid bitwise the existing entries and the plain versions' bounds
+     on integer inputs, rows past it unwritten;
      and the port's engine on the card against the same engine on the
      CPU at a small size, at each spec;
   4. the main path at the paper's Netflix size (n = 480,189 users,
@@ -111,7 +115,26 @@ Phases, each fatal on failure (exit code 1, no result line):
      torch.matmul of the same (n, d) x (d, m) f32 product, TF32 off, in
      user blocks of 32,768, summed over the blocks: the f32 rate the card
      reaches at its power limit, not K3's function (it writes every
-     score and counts nothing), and not called by the port.
+     score and counts nothing), and not called by the port;
+  6. the serving path at Netflix size (`serving_checks`), its own launch
+     counts zeroed before and read after (the elastic entries of K1, K4
+     and K5 must have run, in replays of CUDA graphs): (a) elastic:fused
+     bitwise the fused engines of phases 4 and 4b in query_batch and
+     query at c = 2.0 and 1.3; (b) elastic:dense against dense by the
+     explained-mismatch rule; (c) elastic_trace_count() flat across an
+     n sweep inside the bucket (450,000, 470,000, 480,189 -> capacity
+     524,288), a change of c, item churn on the delta path, appends and
+     a rebuild growing n, and one more for n in a new bucket, with a
+     replay's bounds bitwise a direct call of the entry; (d) MicroBatcher
+     on elastic:fused, max_batch 16, pipeline depth 1 and 2, 512 item
+     queries from 4 client threads, every result bitwise its row of a
+     synchronous query_batch, with latency, fill, each tick's copy of the
+     result to the host (time and bytes), compiles, overlap and
+     queries/s; (e) cached:elastic:fused admission hits; (f) a
+     serve.transfer fault failing exactly its tick; (g) close(drain_s)
+     with ticks in flight; then the elastic entries on the padded
+     operands at n_valid = n, timed beside the existing entries at n,
+     and the peak device memory.
 
 `--digests SRC` runs only phase 4's data, its f32 build, K3 grading,
 phase 4c's reordered f32 engine and the storage tier's tables with the
@@ -1491,6 +1514,604 @@ def mutable_index_checks(dev, *, n=N, m=M, d=D, tau=TAU,
     return report
 
 
+# ------------------------------------------------------------- serving
+SWEEP = (450_000, 470_000, N)      # phase 6's n sweep, one capacity bucket
+SERVE_Q, SERVE_THREADS = 512, 4    # phase 6's MicroBatcher load
+C_ODD = 1.3                        # a c that is not a power of two
+ELASTIC_REPLACES = "src/repro/kernels/ops.py:292"   # bound_ranks_tile
+ELASTIC_KERNEL = {"f32": "k1_bound_ranks_elastic",
+                  "bf16": "k4_bound_ranks_bf16_elastic",
+                  "int8": "k5_bound_ranks_int8_elastic"}
+
+
+def differing_fields(torch, got, want) -> list:
+    """Names of the QueryResult fields that are not bitwise equal."""
+    return [f for f, x, y in zip(type(want)._fields, got, want)
+            if x.shape != y.shape or not torch.equal(x.to(y.device), y)]
+
+
+def same_result(torch, got, want, label):
+    bad = differing_fields(torch, got, want)
+    check(not bad, f"{label}: fields {bad} differ")
+
+
+def rows_view(users, rt, n):
+    """The first n rows of either user representation and of the table,
+    as views (contiguous, at offset 0)."""
+    from repro_torch.core.types import RankTable, StoredUsers
+    if isinstance(users, StoredUsers):
+        users = StoredUsers(*(None if x is None else x[:n] for x in users))
+    else:
+        users = users[:n]
+    return users, RankTable(m=rt.m, **{
+        f: None if getattr(rt, f) is None else getattr(rt, f)[:n]
+        for f in RankTable._fields if f != "m"})
+
+
+def elastic_entry_checks(dev, *, n=1000, d=37, tau=37, m=777):
+    """Phase 3: the elastic entries of K1, K4 and K5 (operands padded to
+    the capacity of n rows, the row count read on the device), at every
+    kind, B in 1, 16 and 19, and n_valid in {1, T - 1, T + 1, n,
+    capacity}, T the kernel's tile rows, on integer inputs: rows below
+    n_valid bitwise the existing entry's over the first n_valid rows and
+    r_lo/r_up bitwise the plain version's (est within 1e-5 relative, the
+    rule of every plain-version check on integer inputs); rows at or
+    past n_valid not written (launched directly into NaN-filled
+    outputs). Returns the lines to print."""
+    import torch
+    from repro_torch.core import elastic
+    from repro_torch.core import query as query_mod
+    from repro_torch.core import rank_table as rt_mod
+    from repro_torch.core.types import RankTable, RankTableConfig
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=dev)
+    g.manual_seed(25)
+    cap = elastic.capacity_for(n, elastic.default_tile())
+    users, items, thr, tab = k1_edge_inputs(torch, g, cap, d, tau, m=m)
+    cases = [("f32", users, RankTable(thr, tab, m))]
+    for spec in ("bf16", "int8"):
+        cfg = RankTableConfig(tau=tau, omega=4, s=16, storage_dtype=spec)
+        cases.append((spec, cfg.storage.pack_users(users),
+                      rt_mod.build_rank_table(users, items, cfg, g)))
+    lines = []
+    for kind, u, rt in cases:
+        for nb in (1, 16, 19):
+            qs = items[torch.arange(nb, device=dev) * 5 % m].contiguous()
+            q16 = qs[:ops.user_scores.MAX_B]
+            if kind == "f32":
+                T = ops.user_scores.launch_config(
+                    q16.shape[0], d, tau)["tile_rows"]
+            else:
+                T = ops.user_scores.quant_launch_config(
+                    kind, False, q16.shape[0], d, tau)["tile_rows"]
+            for nv in sorted({1, T - 1, T + 1, n, cap}):
+                label = f"{kind} elastic B={nb} n_valid={nv} of {cap}"
+                nvt = torch.tensor([nv], dtype=torch.int32, device=dev)
+                got = ops.bound_ranks_batched_stored(u, qs, rt, nvt)
+                u_n, rt_n = rows_view(u, rt, nv)
+                full = ops.bound_ranks_batched_stored(u_n, qs, rt_n)
+                torch.cuda.synchronize()
+                for a, b in zip(got, full):
+                    check(torch.equal(a[:, :nv], b),
+                          f"{label}: rows below n_valid differ from the "
+                          "existing entry's")
+                if kind == "f32":
+                    want = ref.ref_bound_ranks(users, qs, thr, tab, m)
+                else:
+                    rows, usc, usl = ops.stored_parts(u, kind)
+                    want = ref.ref_bound_ranks_stored(
+                        rows, usc, usl, qs, query_mod.query_l1(qs), rt)
+                want = [x.T[:, :nv] for x in want]
+                check(torch.equal(got[0][:, :nv], want[0])
+                      and torch.equal(got[1][:, :nv], want[1]),
+                      f"{label}: bounds differ from the plain version")
+                err = (got[2][:, :nv] - want[2]).abs()
+                check(bool((err <= 1e-5 * want[2].abs()).all()),
+                      f"{label}: est beyond 1e-5 relative")
+                # rows at or past n_valid are left unwritten
+                out = torch.full((3, cap, q16.shape[0]), float("nan"),
+                                 device=dev)
+                if kind == "f32":
+                    ops.user_scores.bound_ranks_batched_kernel_call(
+                        users, q16, thr, tab, *out, m=m, n_valid=nvt)
+                else:
+                    ops.user_scores.bound_ranks_quant_kernel_call(
+                        kind, *ops.stored_parts(u, kind), q16,
+                        query_mod.query_l1(q16), rt, *out, n_valid=nvt)
+                torch.cuda.synchronize()
+                check(bool(torch.isnan(out[:, nv:]).all())
+                      and not bool(torch.isnan(out[:, :nv]).any()),
+                      f"{label}: the entry wrote rows at or past n_valid, "
+                      "or left rows below it unwritten")
+        lines.append(f"  {kind} elastic entry: n={n} of capacity {cap}, "
+                     f"d={d} tau={tau}, B in 1, 16, 19, n_valid in 1, "
+                     f"T - 1, T + 1, n, capacity: rows below n_valid "
+                     f"bitwise the existing entry and the plain version's "
+                     f"bounds, est within 1e-5, rows past it unwritten")
+    return lines
+
+
+def serving_checks(dev, *, users, items, cfg, pos, w, qs, engines,
+                   sweep=SWEEP, n_serve=SERVE_Q, timing=True):
+    """Phase 6: the serving path at the engines' size. `engines` maps
+    "f32", "bf16" and "int8" to fused engines over `users` and `items`
+    built with the samples (pos, w); qs (B, d) item queries. Each check
+    is fatal:
+
+      (a) elastic:fused at every spec is bitwise the fused engine in
+          query_batch and query, at c = 2.0 and 1.3 (every field); on
+          the card each program's first run, in a launch window of its
+          own, launches its elastic entry exactly twice a 16 queries
+          (one eager run, the capture), its replays none, and the
+          program counts its replays; torch.profiler sees the kernel run
+          inside 3 replays;
+      (b) elastic:dense at f32 against dense by the explained-mismatch
+          rule (its product runs over the capacity), its bounds bitwise
+          the same plain computation outside the graph;
+      (c) no new program (elastic_trace_count) across an n sweep inside
+          one bucket, a change of c, item churn on the delta path, user
+          appends and a rebuild that grows n; exactly one more for an n
+          in a new bucket; a replay's bounds bitwise a direct call of
+          the elastic entry; on the delta path after the item churn and
+          after the append, elastic:fused against fused on the same
+          snapshot, bitwise or by the explained-mismatch rule;
+      (d) MicroBatcher on elastic:fused at f32, max_batch 16, pipeline
+          depth 1 and 2, n_serve item queries from 4 client threads:
+          every result held and bitwise its row of a synchronous
+          query_batch of 16-wide blocks; no program built after warm-up;
+          in each burst's launch window no wrapper launch, and one
+          replay a tick;
+      (e) on cached:elastic:fused, repeated queries resolve at admission,
+          bitwise;
+      (f) an injected serve.transfer fault fails exactly that tick's
+          futures, and the next tick serves;
+      (g) close(drain_s=...) with ticks in flight leaves no future
+          unresolved.
+
+    Returns a report: the checks passed, the elastic backends (for the
+    kernel rows), (a)'s launch windows and the numbers printed."""
+    import threading
+    import numpy as np
+    import torch
+    from concurrent.futures import wait as wait_futures
+    from repro_torch.core import elastic
+    from repro_torch.core import query as query_mod
+    from repro_torch.core import rank_table as rt_mod
+    from repro_torch.core.backends import FusedBackend
+    from repro_torch.core.engine import ReverseKRanksEngine
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import MicroBatcher, SchedulerClosed, faults
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    report = {"checks": [], "backends": {}}
+    n, m = users.shape[0], engines["f32"].rank_table.m
+    q1 = qs[0]
+
+    # (a) elastic:fused bitwise fused, every spec, two c. The first run
+    # of each program is where the main path launches its kernel: one
+    # eager run and the capture, ⌈B/16⌉ launches each, counted in a window
+    # of its own; the replays that follow call no wrapper, so the window
+    # holds exactly those, and each program reports its replays and the
+    # launches its graph holds
+    elastic_engines, windows, lines = {}, {}, []
+    for spec, eng_f in engines.items():
+        eng_e = ReverseKRanksEngine(eng_f.users, eng_f.rank_table,
+                                    eng_f.config, backend="elastic:fused")
+        elastic_engines[spec] = eng_e
+        report["backends"][spec] = eng_e._backend
+        name = ELASTIC_KERNEL[spec]
+        for nb, ask, ref_ask in (
+                (qs.shape[0], lambda c: eng_e.query_batch(qs, K, c),
+                 lambda c: eng_f.query_batch(qs, K, c)),
+                (1, lambda c: eng_e.query(q1, K, c),
+                 lambda c: eng_f.query(q1, K, c))):
+            ops.reset_launch_counts()
+            got = [ask(c) for c in (C, C_ODD)]
+            sync()
+            win = {k: v for k, v in ops.LAUNCHES.items() if v}
+            per_run = -(-nb // ops.user_scores.MAX_B)
+            want_win = {name: 2 * per_run} if on_card else {}
+            check(win == want_win, f"(a) elastic:fused {spec} B={nb}: "
+                  f"launches {win}, expected {want_win}")
+            windows[(spec, nb)] = win.get(name, 0)
+            prog = next(p for p in eng_e._backend.programs()
+                        if p.qs.shape[0] == nb)
+            if on_card:
+                check(prog.replays == 2
+                      and prog.recorded == {name: per_run},
+                      f"(a) elastic:fused {spec} B={nb}: {prog.replays} "
+                      f"replays holding {prog.recorded}, expected 2 "
+                      f"holding {{{name!r}: {per_run}}}")
+            lines.append(f"{spec} B={nb}: {win.get(name, 0)} launches of "
+                         f"{name}, then {prog.replays} replays of a graph "
+                         f"holding {prog.recorded.get(name, 0)}")
+            for c, r in zip((C, C_ODD), got):
+                same_result(torch, r, ref_ask(c),
+                            f"(a) elastic:fused {spec} B={nb} c={c}")
+    sync()
+    report["launches"] = windows
+    print("  (a) launches of the serving path's first runs, each in a "
+          "window of its own (one eager run and the capture; replays call "
+          "no wrapper): " + "; ".join(lines))
+    if on_card:
+        # the kernel runs inside the replays: torch.profiler sees it there
+        from torch.profiler import ProfilerActivity, profile
+        eng_e = elastic_engines["f32"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                eng_e.query_batch(qs, K, C)
+            sync()
+        ran = sum(e.count for e in prof.key_averages()
+                  if "step1_ring_kernel" in e.key)
+        per_run = -(-qs.shape[0] // ops.user_scores.MAX_B)
+        check(ran == 3 * per_run, f"(a) torch.profiler saw {ran} runs of "
+              f"the ring kernel in 3 replays, expected {3 * per_run}")
+        print(f"  (a) torch.profiler over 3 replays of the f32 B="
+              f"{qs.shape[0]} program: {ran} runs of step1_ring_kernel")
+    report["checks"].append("a")
+    print(f"  (a) elastic:fused bitwise fused at f32, bf16 and int8, "
+          f"query_batch (B={qs.shape[0]}) and query, c = {C} and {C_ODD}: "
+          "indices, est, r_lo/r_up, R_lo_k/R_up_k, guaranteed, n_accepted, "
+          "n_pruned")
+
+    # (b) elastic:dense against dense, f32
+    eng_f = engines["f32"]
+    rt = eng_f.rank_table
+    eng_d = ReverseKRanksEngine(users, rt, cfg, backend="dense")
+    eng_ed = ReverseKRanksEngine(users, rt, cfg, backend="elastic:dense")
+    for c in (C, C_ODD):
+        res_e = eng_ed.query_batch(qs, K, c)
+        res_d = eng_d.query_batch(qs, K, c)
+        bucket = next(iter(eng_ed._backend._buckets.values()))
+        f_b = [x[:, :n] for x in query_mod.bound_ranks_batch(
+            bucket.rt, bucket.users, qs)]
+        check(torch.equal(res_e.r_lo, f_b[0])
+              and torch.equal(res_e.r_up, f_b[1]),
+              "(b) elastic:dense: the graph's bounds differ from the same "
+              "computation outside it")
+        d_b = query_mod.bound_ranks_batch(rt, users, qs)
+        check_k1(torch, ops, ref, users, qs, rt.thresholds, rt.table, m,
+                 f"(b) at capacity c={c}",
+                 got=[x.T for x in f_b], name="elastic:dense")
+        n_diff, tol = selections_agree(torch, query_mod, res_e, res_d, f_b,
+                                       d_b, K, c, m)
+        print(f"  (b) elastic:dense c={c}: {n_diff} users selected by one "
+              f"of elastic:dense and dense only, all explained (est tol "
+              f"{tol:.3g})")
+    del eng_ed, res_e, res_d, f_b, d_b
+    report["checks"].append("b")
+
+    # (c) no new program across the serving-time changes
+    n0 = sweep[1]
+    eng_m = ReverseKRanksEngine(
+        users[:n0].contiguous(), rt.take_rows(torch.arange(n0, device=dev)),
+        cfg, backend="elastic:fused", items=items, positions=pos,
+        weights=w)
+    bk = eng_m._backend
+    count = elastic.elastic_trace_count
+    eng_m.query_batch(qs, K, C)                 # warm-up: one program
+    eng_m.query(q1, K, C)                       # and one at B = 1
+
+    def step(label, fn, new=0):
+        before = count()
+        fn()
+        sync()
+        after = count()
+        print(f"  (c) {label}: elastic_trace_count {before} -> {after}")
+        check(after - before == new, f"(c) {label}: {after - before} new "
+              f"programs, expected {new}")
+
+    def sweep_n():
+        for nn in sweep:
+            u_n, rt_n = rows_view(users, rt, nn)
+            same_result(torch, bk.query_batch(rt_n, u_n, qs, k=K, c=C),
+                        FusedBackend().query_batch(rt_n, u_n, qs, k=K, c=C),
+                        f"(c) n={nn}")
+    step(f"n sweep {', '.join(map(str, sweep))} (capacity "
+         f"{elastic.capacity_for(n, bk.tile)}), each bitwise fused", sweep_n)
+    step(f"c = {C_ODD}", lambda: eng_m.query_batch(qs, K, C_ODD))
+    fresh = items[-6:] * 1.25
+    ids = [None]
+
+    def warm_delta():
+        ids[0] = eng_m.insert_items(fresh[:3])
+        eng_m.delete_items([0, 1, 2])
+        eng_m.query_batch(qs, K, C)
+    step("delta path warm-up (+3 items, -3 items)", warm_delta, new=1)
+
+    def churn():
+        eng_m.insert_items(fresh[3:])
+        eng_m.delete_items([3, 4, 5])
+        eng_m.query_batch(qs, K, C)
+        eng_m.query_batch(qs, K, C_ODD)
+    step("item churn on the delta path (+3, -3)", churn)
+
+    def against_fused(label):
+        """eng_m's elastic query_batch against the fused backend on the
+        same snapshot, at both c: bitwise, or else (the correction's
+        product runs over the capacity in the program, over n in fused,
+        and cuBLAS may take another algorithm for another row count)
+        agreeing by the explained-mismatch rule, the differing cells
+        counted."""
+        snap = eng_m.current_snapshot()
+        u_s, rt_s, corr = snap.query_users(), snap.rank_table, snap.corr
+        for c in (C, C_ODD):
+            res_e = eng_m.query_batch(qs, K, c)
+            res_f = FusedBackend().query_batch(rt_s, u_s, qs, k=K, c=c,
+                                               delta=corr)
+            bad = differing_fields(torch, res_e, res_f)
+            if not bad:
+                print(f"  (c) {label}, c={c}: elastic:fused bitwise fused "
+                      "on the same snapshot, every field")
+                continue
+            # both corrected bounds, step 1 shared (its rows are bitwise
+            # the elastic entry's), the correction's product over n and
+            # over the capacity
+            n_s = u_s.shape[0]
+            step1 = [x.T for x in FusedBackend().bound_ranks(rt_s, u_s, qs)]
+            padded = bk._buckets[next(reversed(bk._buckets))].users
+            both = []
+            for uu in (padded, u_s):
+                sc, sl = query_mod.user_scores_batch(uu, qs)
+                both.append([x.T for x in rt_mod.apply_delta_corrections(
+                    sc[:n_s], *step1, corr,
+                    slack=None if sl is None else sl[:n_s])])
+            e_b, f_b = both
+            check(torch.equal(e_b[0], res_e.r_lo)
+                  and torch.equal(e_b[1], res_e.r_up),
+                  f"(c) {label}: the program's bounds are not the "
+                  "correction over the capacity's product")
+            cells = int(((e_b[0] != f_b[0]) | (e_b[1] != f_b[1])).sum())
+            n_diff, tol = selections_agree(torch, query_mod, res_e, res_f,
+                                           e_b, f_b, K, c,
+                                           corr.selection_m())
+            print(f"  (c) {label}, c={c}: fields {bad} differ from fused "
+                  f"on the same snapshot; {cells} cells of r_lo/r_up "
+                  f"differ, {n_diff} users selected by one only, all "
+                  f"explained (est tol {tol:.3g})")
+    against_fused("after the item churn")
+
+    def grow():
+        eng_m.upsert_users(users[n0:])
+        eng_m.query_batch(qs, K, C)
+    step(f"append {n - n0} users (n = {n}) on the delta path", grow)
+    against_fused(f"after the append (n = {n})")
+
+    def rebuild():
+        check(eng_m.rebuild(positions=pos, weights=w) is not None,
+              "(c) rebuild did not run")
+        eng_m.query_batch(qs, K, C)
+    step("rebuild() at n = {n}, m unchanged".format(n=n), rebuild)
+    # a replay's bounds against a direct call of the elastic entry
+    res = eng_m.query_batch(qs, K, C)
+    bucket = bk._buckets[next(reversed(bk._buckets))]
+    direct = ops.bound_ranks_batched_stored(
+        bucket.users, qs, bucket.rt, torch.tensor([n], dtype=torch.int32,
+                                                  device=dev))
+    check(torch.equal(res.r_lo, direct[0][:, :n])
+          and torch.equal(res.r_up, direct[1][:, :n]),
+          "(c) a replay's bounds differ from a direct call of the entry")
+    # the same program run eagerly on its static inputs as the replay
+    # above left them, against that replay's outputs (every field)
+    if on_card:
+        prog = next(p for p in bk.programs() if p.bucket is bucket
+                    and p.qs.shape[0] == qs.shape[0])
+        check(not differing_fields(torch, prog._body(), prog.out),
+              "(c) the program run eagerly differs from its replay")
+        print("  (c) the B=16 program run eagerly on its static inputs: "
+              "every field bitwise its last replay")
+    small = elastic.capacity_for(n, bk.tile) // 2 - 1000
+    u_s, rt_s = rows_view(users, rt, small)
+    step(f"n = {small} (a new bucket)",
+         lambda: bk.query_batch(rt_s, u_s, qs, k=K, c=C), new=1)
+    replays = sum(p.replays for p in bk.programs())
+    print(f"  (c) {len(bk.programs())} programs of this backend, "
+          f"{replays} replays; a replay's r_lo/r_up bitwise a direct call "
+          "of the elastic entry")
+    del eng_m, res, direct
+    report["checks"].append("c")
+
+    # (d) MicroBatcher on elastic:fused at f32
+    eng_e = elastic_engines["f32"]
+    qids = (torch.arange(n_serve, device=dev) * 7 + 3) % m
+    qh = items[qids].cpu().numpy()
+    want = []
+    for b0 in range(0, n_serve, 16):
+        r = eng_e.query_batch(torch.from_numpy(qh[b0:b0 + 16]).to(dev), K,
+                              C)
+        want += [type(r)(*(x[i].cpu() for x in r)) for i in range(16)]
+
+    bk_e = eng_e._backend
+    want_idx = torch.stack([r.indices for r in want])
+
+    def burst(depth, keep):
+        """n_serve queries submitted by SERVE_THREADS client threads; the
+        results taken in submission order. keep=True holds every result
+        to the end of the burst (each lands in new host memory the client
+        owns); keep=False checks each one's indices and drops it at once,
+        as a client that is done with it would, so the host memory of
+        the results is reused. The launches are counted in a window of
+        the burst's own: every tick replays the program captured in (a),
+        so the window holds none and the replays are one a tick. Returns
+        (results held, wall s, the MicroBatcher)."""
+        futs = [None] * n_serve
+        replays0 = sum(p.replays for p in bk_e.programs())
+        ops.reset_launch_counts()
+        mb = MicroBatcher(eng_e, max_batch=16, max_wait_ms=2.0,
+                          pipeline_depth=depth)
+        out = []
+        try:
+            def client(t):
+                for i in range(t, n_serve, SERVE_THREADS):
+                    futs[i] = mb.submit(qh[i], K, C)
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(SERVE_THREADS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=120)
+            for i, f in enumerate(futs):
+                r = f.result(timeout=120)
+                if keep:
+                    out.append(r)
+                else:
+                    check(torch.equal(r.indices, want_idx[i]),
+                          f"(d) depth {depth} query {i}: indices differ")
+                del r
+            wall = time.perf_counter() - t0
+        finally:
+            mb.close()
+        sync()
+        win = {k: v for k, v in ops.LAUNCHES.items() if v}
+        ticks = sum(1 for t in mb.tick_log if t.batch > 0)
+        replays = sum(p.replays for p in bk_e.programs()) - replays0
+        check(not win, f"(d) depth {depth}: wrapper launches {win} in the "
+              "burst, where every tick should replay")
+        if on_card:
+            check(replays == ticks, f"(d) depth {depth}: {replays} replays "
+                  f"for {ticks} ticks")
+        print(f"  (d) depth {depth}, results {'held' if keep else 'dropped'}"
+              f": launches in the burst's window {win}; {replays} replays "
+              f"for {ticks} ticks")
+        return out, wall, mb
+
+    serve_stats = {}
+    for keep in (True, False):
+        for depth in (1, 2):
+            got, wall, mb = burst(depth, keep)
+            for i, r in enumerate(got):
+                same_result(torch, r, want[i],
+                            f"(d) pipeline_depth={depth} query {i}")
+            del got
+            st, log = mb.stats(), mb.tick_log
+            ticks = [t for t in log if t.batch > 0]
+            check(sum(t.compiles for t in ticks) == 0,
+                  f"(d) depth {depth}: programs built while serving")
+            copy_ms = np.array([t.copy_ms for t in ticks])
+            copy_mb = np.array([t.copy_bytes for t in ticks]) / 1e6
+            stats = serve_stats[(keep, depth)] = dict(
+                p50_ms=st.p50_ms, p99_ms=st.p99_ms, fill=st.mean_fill,
+                overlap=st.overlap_efficiency, qps=n_serve / wall,
+                ticks=len(ticks), copy_ms=float(copy_ms.mean()),
+                copy_mb=float(copy_mb.mean()),
+                transfer_ms=float(np.mean([t.transfer_ms for t in ticks])),
+                rows_ms=float(np.mean([t.rows_ms for t in ticks])))
+            how = ("every result held to the end, every field of every "
+                   "result bitwise its row of a synchronous query_batch"
+                   if keep else "each result dropped once its indices "
+                   "are checked (bitwise)")
+            print(f"  (d) MicroBatcher elastic:fused f32, pipeline_depth="
+                  f"{depth}: {n_serve} queries from {SERVE_THREADS} threads "
+                  f"in {wall * 1e3:.1f} ms ({n_serve / wall:.1f} queries/s)"
+                  f"; {len(ticks)} ticks, fill {st.mean_fill:.3f}, p50 "
+                  f"{st.p50_ms:.3f} ms, p99 {st.p99_ms:.3f} ms, overlap "
+                  f"efficiency {st.overlap_efficiency:.3f}, compiles per "
+                  f"tick {sum(t.compiles for t in ticks)} in all; copy to "
+                  f"the host per tick {copy_ms.mean():.3f} ms device time "
+                  f"(min {copy_ms.min():.3f}, max {copy_ms.max():.3f}) for "
+                  f"{copy_mb.mean():.2f} MB; completion stage per tick: "
+                  f"wait {stats['transfer_ms']:.3f} ms, the rows' copy-out "
+                  f"into the results' memory {stats['rows_ms']:.3f} ms; "
+                  f"{how}")
+    report["serve"] = serve_stats
+    if timing:
+        q16 = torch.from_numpy(qh[:16]).to(dev)
+        tick_ms = time_ms(torch, lambda: eng_e.query_batch(q16, K, C),
+                          reps=20)
+        report["tick_ms"] = tick_ms
+        print(f"  (d) one 16-wide elastic:fused query_batch (replay, "
+              f"outputs copied out on the card): {tick_ms:.3f} ms by CUDA "
+              f"events; the tick's copy of the result to the host "
+              f"{serve_stats[(True, 2)]['copy_ms']:.3f} ms, "
+              f"{serve_stats[(True, 2)]['copy_ms'] / tick_ms:.2f} of it")
+        eng_f = engines["f32"]
+        for label, fn in (
+                ("fused query_batch(B=16)", lambda: eng_f.query_batch(
+                    q16, K, C)),
+                ("elastic:fused query_batch(B=16)",
+                 lambda: eng_e.query_batch(q16, K, C)),
+                ("fused query", lambda: eng_f.query(q1, K, C)),
+                ("elastic:fused query", lambda: eng_e.query(q1, K, C))):
+            ms = time_ms(torch, fn, reps=50)
+            print(f"  (d) {label}: {ms:.3f} ms a call, 50 calls back to "
+                  "back by CUDA events (host work included where the "
+                  "card waits on it)")
+    report["checks"].append("d")
+
+    # (e) cached:elastic:fused: repeated queries resolve at admission
+    eng_c = ReverseKRanksEngine(users, rt, cfg,
+                                backend="cached:elastic:fused")
+    mb = MicroBatcher(eng_c, max_batch=16, max_wait_ms=2.0)
+    try:
+        first = [mb.submit(qh[i], K, C) for i in range(32)]
+        first = [f.result(timeout=120) for f in first]
+        hits0 = mb.stats().admission_hits
+        again = [mb.submit(qh[i], K, C) for i in range(32)]
+        again = [f.result(timeout=120) for f in again]
+        hits = mb.stats().admission_hits - hits0
+    finally:
+        mb.close()
+    check(hits == 32, f"(e) {hits} of 32 repeated queries hit at admission")
+    for i in range(32):
+        same_result(torch, again[i], want[i], f"(e) admission hit {i}")
+        same_result(torch, first[i], want[i], f"(e) first ask {i}")
+    print("  (e) cached:elastic:fused: 32 queries asked twice, the second "
+          "time all 32 resolved at admission; all bitwise")
+    del eng_c, first, again
+    report["checks"].append("e")
+
+    # (f) an injected serve.transfer fault fails exactly that tick
+    plan = faults.install(faults.FaultPlan(seed=0, rules=[
+        faults.FaultRule("serve.transfer", max_fires=1)]))
+    mb = MicroBatcher(eng_e, max_batch=16, max_wait_ms=50.0)
+    try:
+        batch1 = [mb.submit(qh[i], K, C) for i in range(16)]
+        wait_futures(batch1, timeout=120)
+        batch2 = [mb.submit(qh[i], K, C) for i in range(16, 32)]
+        got2 = [f.result(timeout=120) for f in batch2]
+        log = mb.tick_log
+    finally:
+        mb.close()
+        faults.clear()
+    failed = [f for f in batch1 if isinstance(f.exception(timeout=1),
+                                              faults.InjectedFault)]
+    check(len(failed) == 16 and plan.fires["serve.transfer"] == 1,
+          f"(f) {len(failed)} of the faulted tick's 16 futures failed "
+          f"typed, {plan.fires['serve.transfer']} fires")
+    for i, r in enumerate(got2):
+        same_result(torch, r, want[16 + i], f"(f) next tick query {i}")
+    print(f"  (f) serve.transfer fault: the faulted tick's 16 futures "
+          f"failed with InjectedFault, the next tick served 16 bitwise; "
+          f"{len(log)} tick records")
+    report["checks"].append("f")
+
+    # (g) close(drain_s) with ticks in flight
+    mb = MicroBatcher(eng_e, max_batch=16, max_wait_ms=0.5,
+                      pipeline_depth=2)
+    futs = []
+    try:
+        futs = [mb.submit(qh[i], K, C) for i in range(min(128, n_serve))]
+    finally:
+        mb.close(drain_s=0.002)
+    served = shed = 0
+    for i, f in enumerate(futs):
+        check(f.done(), f"(g) future {i} unresolved after close")
+        e = f.exception(timeout=0)
+        if e is None:
+            same_result(torch, f.result(), want[i], f"(g) query {i}")
+            served += 1
+        else:
+            check(isinstance(e, SchedulerClosed),
+                  f"(g) future {i} failed with {type(e).__name__}")
+            shed += 1
+    print(f"  (g) close(drain_s=0.002) with ticks in flight: {served} "
+          f"served bitwise, {shed} shed with SchedulerClosed, none "
+          "unresolved")
+    report["checks"].append("g")
+    return report
+
+
 # ------------------------------------------------------------ main path
 def digests_of(torch, exact_mod, rt_mod, ReverseKRanksEngine,
                RankTableConfig, synthetic_embeddings, ops, query_mod,
@@ -2023,6 +2644,11 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
     for case in K1_EDGE_CASES:
         print("  " + k1_edges(torch, ops, ref, ops.user_scores, pruning,
                               case) + ": bitwise the plain version")
+
+    print("phase: K1/K4/K5 elastic entries, the row count read on the "
+          "device, integer inputs")
+    for line in elastic_entry_checks(dev):
+        print(line)
 
     print("phase: engine on the card vs the same engine on the CPU")
     users, items = synthetic_embeddings(3, 2048, 1024, 32, device=dev)
@@ -2704,6 +3330,82 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
                   "kept rows)")
             row(f"{name}[B={nb}]", f"src/repro/kernels/user_scores.py:{line}",
                 counts_p[name], err, ms, pms, need, flops, src + source)
+
+    # 6. the serving path: elastic programs on CUDA graphs, MicroBatcher
+    from repro_torch.core import elastic
+    cap = elastic.capacity_for(N, elastic.default_tile())
+    print(f"phase: serving, n={N} m={M} d={D} tau={TAU}, B={B}, elastic "
+          f"tile {elastic.default_tile()}, capacity {cap}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engines = {"f32": eng, "bf16": tier["bf16"]["eng"],
+               "int8": tier["int8"]["eng"]}
+    serve_report = serving_checks(dev, users=users, items=items, cfg=cfg,
+                                  pos=pos, w=w, qs=qs, engines=engines)
+    torch.cuda.synchronize()
+    counts_e = serve_report["launches"]     # (spec, B) -> launches, (a)
+    for (spec, nb), v in counts_e.items():
+        check(v >= 1, f"kernel {ELASTIC_KERNEL[spec]} was not launched on "
+              f"the serving path at B={nb}")
+    print(f"  phase 6: checks {''.join(serve_report['checks'])} passed, "
+          f"{time.perf_counter() - t0:.1f} s; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+          f"{(torch.cuda.max_memory_allocated() - held) / 1e9:.2f} GB above "
+          f"the {held / 1e9:.2f} GB held before it")
+    check(serve_report["checks"] == list("abcdefg"),
+          "phase 6 did not run every check")
+
+    # the elastic entries on the padded operands at n_valid = n, beside
+    # the existing entries at n
+    nvt = torch.tensor([N], dtype=torch.int32, device=dev)
+    for spec, name, nbs in (("f32", "k1_bound_ranks_elastic", (B, 1)),
+                            ("bf16", "k4_bound_ranks_bf16_elastic", (B,)),
+                            ("int8", "k5_bound_ranks_int8_elastic", (B,))):
+        bk = serve_report["backends"][spec]
+        bucket = next(b for b in bk._buckets.values() if b.corr is None)
+        up, rp = bucket.users, bucket.rt
+        eng_s = engines[spec]
+        su = eng_s.users if spec == "f32" else eng_s.stored_users
+        rt_s = eng_s.rank_table
+        for nb in nbs:
+            q = qs[:nb].contiguous()
+            got = ops.bound_ranks_batched_stored(up, q, rp, nvt)
+            full = ops.bound_ranks_batched_stored(su, q, rt_s)
+            for a, b_ in zip(got, full):
+                check(torch.equal(a[:, :N], b_),
+                      f"{name} Netflix B={nb}: rows below n_valid differ "
+                      "from the existing entry's")
+            kept = [x[:, :N].T.contiguous() for x in got]
+            label = f"{name} Netflix B={nb}, capacity {bucket.cap}"
+            if spec == "f32":
+                err = check_k1(torch, ops, ref, su, q, rt_s.thresholds,
+                               rt_s.table, M, label, got=kept,
+                               name="K1 elastic")
+                plain = lambda: ref.ref_rows_past(ref.ref_bound_ranks(
+                    up, q, rp.thresholds, rp.table, M), nvt, M)
+            else:
+                err, _ = check_quant(torch, ops, ref, query_mod, su, q, rt_s,
+                                     label, got=kept)
+                parts = ops.stored_parts(up, spec)
+                plain = lambda: ref.ref_rows_past(ref.ref_bound_ranks_stored(
+                    *parts, q, query_mod.query_l1(q), rp), nvt, M)
+            del got, full, kept
+            ms = time_ms(torch, lambda: ops.bound_ranks_batched_stored(
+                up, q, rp, nvt), reps=20)
+            ms_n = time_ms(torch, lambda: ops.bound_ranks_batched_stored(
+                su, q, rt_s), reps=20)
+            pms = time_ms(torch, plain, reps=3)
+            print(f"  {name}[B={nb}]: {ms:.3f} ms over the capacity "
+                  f"{bucket.cap} at n_valid = {N}, against {ms_n:.3f} ms of "
+                  f"the existing entry over the {N} rows")
+            need, flops = step1_need(torch, query_mod, ops, su, q, rt_s)
+            row(f"{name}[B={nb}]", ELASTIC_REPLACES, counts_e[(spec, nb)],
+                err,
+                ms, pms, need + 4 + 12 * N * nb, flops,
+                src + ("user_scores.cu" if spec == "f32"
+                       else "user_scores_quant.cu"))
     return out
 
 

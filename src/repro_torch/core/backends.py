@@ -11,15 +11,25 @@ Counterpart of `repro/core/backends.py`, with two registered backends:
 `users` is the raw (n, d) matrix at f32 storage and `StoredUsers` at
 bf16 and int8.
 
-and one registered wrapper:
+and three registered wrappers:
 
-  "pruned:<inner>" — block-pruned execution (`core.pruning`): phase A
+  "pruned:<inner>"  — block-pruned execution (`core.pruning`): phase A
             keeps the user tiles that can hold answers, phase B runs
-            step 1 on them only ("pruned" alone is "pruned:dense").
+            step 1 on them only ("pruned" alone is "pruned:dense");
+  "elastic:<inner>" — one program per capacity bucket, never per n
+            (`core.elastic`; "elastic:" is "elastic:dense");
+  "cached:<inner>"  — within-tick dedupe and a per-query LRU
+            (`serve.cache`).
+
+The last two resolve by a lazy import of their module, so a spec works
+without the caller importing it first.
 
 `bound_ranks` takes a (B, d) block and returns (B, n) bounds; `select`
 realizes §4.3 steps 2-3; `query_batch` composes the two. Wrapper specs
-`"<prefix>:<inner>"` resolve through `register_wrapper`.
+`"<prefix>:<inner>"` resolve through `register_wrapper`. The serving
+entry `dispatch_device` takes a host block, stages it on the device in
+one copy and returns device tensors without a host sync; `degrade(level)`
+is the degrade ladder's hook (`serve.degrade`).
 
 On a mutated index `query_batch(..., delta=DeltaCorrection)` folds the
 delta buffer in between step 1 and the selection, through the one
@@ -30,6 +40,7 @@ B on the kept rows.
 """
 from __future__ import annotations
 
+import importlib
 from collections import OrderedDict
 from typing import Callable, Dict, Optional, Type
 
@@ -40,14 +51,46 @@ from repro_torch.core import pruning
 from repro_torch.core import query as query_mod
 from repro_torch.core import rank_table as rt_mod
 from repro_torch.core.types import DeltaCorrection, QueryResult, \
-    RankTable, RankTableConfig, take_user_rows
+    RankTable, RankTableConfig, stored_rows, take_user_rows
 from repro_torch.kernels import ops
+
+
+def host_block(qs, *, pinned: bool) -> torch.Tensor:
+    """A host (numpy or CPU tensor) (B, d) query block as a contiguous
+    f32 CPU tensor, in pinned memory if `pinned`, ready for one
+    non-blocking copy to the card (PyTorch's pinned-memory cache keeps
+    the buffer from reuse until that copy has run)."""
+    if not isinstance(qs, torch.Tensor):
+        qs = torch.from_numpy(np.ascontiguousarray(qs, dtype=np.float32))
+    qs = qs.to(dtype=torch.float32).contiguous()
+    if not pinned:
+        return qs
+    return torch.empty(qs.shape, dtype=torch.float32,
+                       pin_memory=True).copy_(qs)
+
+
+def stage_block(qs, device: torch.device) -> torch.Tensor:
+    """A (B, d) query block as a contiguous f32 tensor on `device`; a
+    host block reaches a CUDA device in ONE non-blocking copy from pinned
+    memory (`host_block`), with no host sync."""
+    if isinstance(qs, torch.Tensor) and qs.device == device:
+        return qs.to(dtype=torch.float32).contiguous()
+    return host_block(qs, pinned=device.type == "cuda").to(
+        device, non_blocking=True)
 
 
 class QueryBackend:
     """Base class / protocol for batched query execution."""
 
     name: str = "abstract"
+    _degrade_level: int = 0
+
+    def degrade(self, level: int) -> None:
+        """Degrade-ladder hook (`serve.degrade`): rung `level` holds until
+        the next call (0 = normal serving). The base backend has no
+        cheaper mode and only records the level; the pruned backend lifts
+        its union cap, and wrappers pass the level inward."""
+        self._degrade_level = int(level)
 
     def bound_ranks(self, rt: RankTable, users: torch.Tensor,
                     qs: torch.Tensor):
@@ -91,8 +134,26 @@ class QueryBackend:
         return self.select(rt, r_lo, r_up, est, k=k, c=c)
 
 
+    def dispatch_device(self, rt: RankTable, users, qs, *, k: int,
+                        c: float, delta: Optional[DeltaCorrection] = None
+                        ) -> QueryResult:
+        """Serving entry: a HOST (B, d) block (numpy or a CPU tensor) is
+        staged on the device in one copy (`stage_block`), and the tick's
+        QueryResult comes back as device tensors with no host sync; the
+        caller copies it to the host. Values are bitwise those of
+        `query_batch` on the same block."""
+        qs = stage_block(qs, stored_rows(users).device)
+        if delta is None:
+            return self.query_batch(rt, users, qs, k=k, c=c)
+        return self.query_batch(rt, users, qs, k=k, c=c, delta=delta)
+
+
 _REGISTRY: Dict[str, Type[QueryBackend]] = {}
 _WRAPPERS: Dict[str, Callable[[str], QueryBackend]] = {}
+# Wrapper prefixes that resolve by importing their module on first use
+# (these modules import this one, so they cannot be imported here)
+_LAZY_WRAPPERS = {"cached": "repro_torch.serve.cache",
+                  "elastic": "repro_torch.core.elastic"}
 
 
 def register_backend(name: str):
@@ -126,6 +187,9 @@ def get_backend(spec) -> QueryBackend:
     if isinstance(spec, str) and ":" in spec:
         prefix, _, inner = spec.partition(":")
         factory = _WRAPPERS.get(prefix)
+        if factory is None and prefix in _LAZY_WRAPPERS:
+            importlib.import_module(_LAZY_WRAPPERS[prefix])
+            factory = _WRAPPERS.get(prefix)
         if factory is None:
             raise ValueError(f"unknown backend wrapper {prefix!r} in "
                              f"{spec!r}; registered: {sorted(_WRAPPERS)}")
@@ -138,6 +202,16 @@ def get_backend(spec) -> QueryBackend:
     obj = cls()
     obj.name = spec
     return obj
+
+
+def _stock_pipeline(backend: QueryBackend, cls: Type[QueryBackend]) -> bool:
+    """True when the instance uses `cls`'s own `bound_ranks` and the base
+    `select`: only then is an end-to-end fast path (the elastic program)
+    the same computation as bound_ranks + select, and a subclass that
+    overrides either hook keeps the composed path."""
+    t = type(backend)
+    return (t.select is QueryBackend.select
+            and t.bound_ranks is cls.bound_ranks)
 
 
 @register_backend("dense")
@@ -219,6 +293,13 @@ class PrunedBackend(QueryBackend):
         self.summary_for(rt, users)         # pre-warm this generation
         return rt
 
+    def degrade(self, level):
+        """Rung ≥ 1 lifts `max_union_frac` to 1.0: a query that prunes
+        poorly pays the two-phase scan over its kept blocks instead of a
+        full-scan latency spike. Bounds and results are unchanged."""
+        super().degrade(level)
+        self.inner.degrade(level)
+
     def summary_for(self, rt: RankTable, users) -> pruning.BlockSummary:
         """The `BlockSummary` of this index generation (identity-cached)."""
         key = (id(users), id(rt.thresholds), id(rt.table), self.block_size,
@@ -260,7 +341,11 @@ class PrunedBackend(QueryBackend):
         per_q = float(keep_np.mean())
         self.stats = pruning.PruneStats(
             n_blocks=nb, kept_union=int(union.size), kept_per_query=per_q)
-        if union.size > self.max_union_frac * nb:
+        # degrade rung ≥ 1 lifts the union cap to 1.0: the fallback is
+        # then unreachable (union ≤ nb)
+        union_cap = (1.0 if self._degrade_level >= 1
+                     else self.max_union_frac)
+        if union.size > union_cap * nb:
             self.stats.fallback = "dense"
             return self.inner.query_batch(rt, users, qs, k=k, c=c,
                                           delta=delta)

@@ -40,9 +40,15 @@ rebuild equals a build from scratch over the live items with the same
 seed, bit for bit. An engine built from given `positions`/`weights`
 rebuilds from given ones too (`rebuild(positions=, weights=)`).
 
-Not ported here: `restore`, `attach_persister` and the WAL (durability),
-the `obs` counters and span (telemetry), `dispatch_batch_at` (the
-serving stack) and the reference's chaos site in `rebuild`.
+Serving. `dispatch_batch_at(snap, qs, k, c)` is the serving twin of
+`query_batch_at`: a host (numpy) block in, device tensors out, with no
+host sync (`QueryBackend.dispatch_device`); `repro_torch.serve.
+MicroBatcher` drives it. Both entries count `engine_queries_total` (and
+`engine_delta_queries_total` on a mutated index, inside the
+`engine.delta_correct` span) in `repro_torch.obs`, and `rebuild` carries
+the chaos site `index.rebuild` (`repro_torch.serve.faults`).
+
+Not ported here: `restore`, `attach_persister` and the WAL (durability).
 """
 from __future__ import annotations
 
@@ -63,6 +69,9 @@ from repro_torch.core.types import QueryResult, RankTable, RankTableConfig
 from repro_torch.device import resolve_device
 from repro_torch.index import delta as delta_mod
 from repro_torch.index.maintenance import RebuildRecord
+from repro_torch.obs import registry as obs
+from repro_torch.obs import trace
+from repro_torch.serve import faults
 from repro_torch.index.snapshot import IndexSnapshot, SnapshotManager, \
     compose_remaps
 
@@ -220,9 +229,40 @@ class ReverseKRanksEngine:
             raise ValueError(
                 f"query_batch expects (B, d) queries; got {tuple(qs.shape)}")
         qs = qs.to(device=snap.users.device, dtype=torch.float32)
-        return self._backend.query_batch(snap.rank_table, snap.query_users(),
-                                         qs.contiguous(), k=k, c=c,
-                                         delta=snap.corr)
+        return self._count_and_run(
+            snap, qs.shape[0], lambda **kw: self._backend.query_batch(
+                snap.rank_table, snap.query_users(), qs.contiguous(), k=k,
+                c=c, **kw))
+
+    def dispatch_batch_at(self, snap: IndexSnapshot, qs, k: int,
+                          c: float) -> QueryResult:
+        """The serving twin of `query_batch_at`: a host (numpy or CPU
+        tensor) block in, a QueryResult of device tensors out, staged by
+        the backend's `dispatch_device` in one copy and returned with no
+        host sync; the caller copies the result back. Values are bitwise
+        those of `query_batch_at` on the same block."""
+        if qs.ndim != 2:
+            raise ValueError(f"dispatch_batch_at expects (B, d) queries; "
+                             f"got {tuple(qs.shape)}")
+        return self._count_and_run(
+            snap, qs.shape[0], lambda **kw: self._backend.dispatch_device(
+                snap.rank_table, snap.query_users(), qs, k=k, c=c, **kw))
+
+    @staticmethod
+    def _count_and_run(snap: IndexSnapshot, batch: int, run) -> QueryResult:
+        """Count the queries, and on a mutated index run `run(delta=)`
+        inside the `engine.delta_correct` span; the static path passes no
+        delta keyword."""
+        reg = obs.get_default()
+        reg.counter("engine_queries_total",
+                    "queries executed (batch-expanded)").inc(batch)
+        if snap.corr is None:
+            return run()
+        reg.counter("engine_delta_queries_total",
+                    "queries served through delta corrections").inc(batch)
+        with trace.span("engine.delta_correct", batch=batch,
+                        epoch=snap.epoch):
+            return run(delta=snap.corr)
 
     def query_batch(self, qs: torch.Tensor, k: int, c: float) -> QueryResult:
         """Batched queries: qs is (B, d); every field gains a leading B
@@ -457,6 +497,9 @@ class ReverseKRanksEngine:
         if not self._rebuild_lock.acquire(blocking=False):
             return None
         try:
+            if faults.ACTIVE is not None:
+                # chaos site: a failing Algorithm-1 build
+                faults.fire("index.rebuild")
             with self._lock:
                 snap = self._require_base("rebuild")
             stats = snap.delta.stats(snap.base)

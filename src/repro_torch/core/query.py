@@ -29,6 +29,17 @@ from repro_torch.core.types import EPS_BF16, DeltaCorrection, QueryResult, \
     kth_smallest
 
 
+def m_plus(m, offset: int):
+    """m + offset as the f32 scalar of the lookup and the selection: a
+    Python float for an int m, and for a 0-d f32 device tensor m (the
+    elastic program writes m there before each replay, so that a change
+    of m needs no new capture) a 0-d tensor on its device. The two give
+    the same f32 operands, so the results are bitwise alike."""
+    if isinstance(m, torch.Tensor):
+        return m + float(offset)
+    return float(m + offset)
+
+
 def _bucketize(thresholds: torch.Tensor, uq: torch.Tensor) -> torch.Tensor:
     """idx = #{j : t_j ≤ uq} per (row, query): thresholds (n, τ)
     ascending per row, uq (n, B) → (n, B) int64 in [0, τ]."""
@@ -127,7 +138,7 @@ def bf16_bounds(rt: RankTable, idx_lo: torch.Tensor, idx_hi: torch.Tensor
     lo_col = torch.clamp(idx_hi, 0, tau - 1)
     t_up = torch.gather(rt.table, 1, up_col).to(torch.float32)
     t_lo = torch.gather(rt.table, 1, lo_col).to(torch.float32)
-    r_up = torch.where(idx_lo == 0, float(rt.m + 1), t_up * (1.0 + EPS_BF16))
+    r_up = torch.where(idx_lo == 0, m_plus(rt.m, 1), t_up * (1.0 + EPS_BF16))
     r_lo = torch.where(idx_hi == tau, 1.0, t_lo * (1.0 - EPS_BF16))
     return r_lo, r_up
 
@@ -149,7 +160,7 @@ def _lookup_bounds_bf16(rt: RankTable, uq: torch.Tensor,
         uq, idx_hi, thr32(torch.clamp(idx_hi - 1, 0, tau - 1)),
         thr32(torch.clamp(idx_hi, 0, tau - 1)), thr[:, :1].to(torch.float32),
         thr[:, tau - 1:tau].to(torch.float32), r_lo, r_up, tau,
-        float(rt.m + 1))
+        m_plus(rt.m, 1))
     return r_lo, r_up, est
 
 
@@ -201,7 +212,7 @@ def int8_bounds(rt: RankTable, idx_lo: torch.Tensor, idx_hi: torch.Tensor
         return torch.gather(rt.table, 1, col).to(torch.float32) * sc_b + off_b
 
     widen = widen_c * sc_b
-    r_up = torch.where(idx_lo == 0, float(rt.m + 1),
+    r_up = torch.where(idx_lo == 0, m_plus(rt.m, 1),
                        deq_tab(torch.clamp(idx_lo - 1, 0, tau - 1)) + widen)
     r_lo = torch.where(idx_hi == tau, 1.0,
                        deq_tab(torch.clamp(idx_hi, 0, tau - 1)) - widen)
@@ -225,7 +236,7 @@ def _lookup_bounds_int8(rt: RankTable, uq: torch.Tensor,
     est = _est_from_grid(
         uq, idx_hi, grid_at(torch.clamp(idx_hi - 1, 0, tau - 1)),
         grid_at(torch.clamp(idx_hi, 0, tau - 1)), -127.0 * sc_t + off_t,
-        127.0 * sc_t + off_t, r_lo, r_up, tau, float(rt.m + 1))
+        127.0 * sc_t + off_t, r_lo, r_up, tau, m_plus(rt.m, 1))
     return r_lo, r_up, est
 
 
@@ -256,7 +267,7 @@ def lookup_bounds_batch(rt: RankTable, uq: torch.Tensor,
     tau = rt.tau
     thr, tab = rt.thresholds, rt.table
     idx = _bucketize(thr, uq)
-    m_plus_1 = float(rt.m + 1)
+    m_plus_1 = m_plus(rt.m, 1)
     up_col = torch.clamp(idx - 1, 0, tau - 1)
     lo_col = torch.clamp(idx, 0, tau - 1)
     t_up = torch.gather(tab, 1, up_col)
@@ -278,16 +289,19 @@ def bound_ranks_batch(rt: RankTable, users, qs: torch.Tensor
 
 
 def lemma1_key(r_lo: torch.Tensor, r_up: torch.Tensor, est: torch.Tensor, *,
-               R_lo_k: torch.Tensor, R_up_k: torch.Tensor, c: float,
-               m_items: int):
+               R_lo_k: torch.Tensor, R_up_k: torch.Tensor, c, m_items):
     """The §4.3 composite selection key (smaller = better) and the
     guaranteed/accepted/pruned masks it is built from. `m_items + 2`
-    strictly dominates any est ∈ [1, m+1], separating the classes."""
+    strictly dominates any est ∈ [1, m+1], separating the classes.
+
+    `c` and `m_items` are Python numbers, or 0-d f32 tensors on the
+    bounds' device (the elastic program's, read at replay); either way c
+    enters as its f32 value, so the keys are bitwise alike."""
     guaranteed = c * R_lo_k >= R_up_k
     accepted = r_up <= (c * R_lo_k)[..., None]              # Lemma 1 (1)
     pruned = r_lo > R_up_k[..., None]                       # Lemma 1 (2)
     prio = torch.where(accepted, 0.0, torch.where(pruned, 2.0, 1.0))
-    big = float(m_items + 2)
+    big = m_plus(m_items, 2)
     key = torch.where(guaranteed[..., None], est, prio * big + est)
     return key, guaranteed, accepted, pruned
 
@@ -298,8 +312,8 @@ def smallest_k(key: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(key, dim=-1, stable=True).indices[..., :k]
 
 
-def lemma1_select(r_lo, r_up, est, *, R_lo_k, R_up_k, k: int, c: float,
-                  m_items: int):
+def lemma1_select(r_lo, r_up, est, *, R_lo_k, R_up_k, k: int, c,
+                  m_items):
     """§4.3 step 3 as one composite-key selection; the candidate axis is
     last. Returns (indices, guaranteed, accepted, pruned)."""
     key, guaranteed, accepted, pruned = lemma1_key(
@@ -309,8 +323,10 @@ def lemma1_select(r_lo, r_up, est, *, R_lo_k, R_up_k, k: int, c: float,
 
 
 def select_topk(r_lo: torch.Tensor, r_up: torch.Tensor, est: torch.Tensor,
-                *, k: int, c: float, m_items: int) -> QueryResult:
-    """Steps 2-3 of §4.3 on (n,) or (B, n) bounds."""
+                *, k: int, c, m_items) -> QueryResult:
+    """Steps 2-3 of §4.3 on (n,) or (B, n) bounds. `c` and `m_items`
+    may be 0-d f32 device tensors (`lemma1_key`); nothing here reads a
+    value back to the host."""
     R_lo_k = kth_smallest(r_lo, k)
     R_up_k = kth_smallest(r_up, k)
     indices, guaranteed, accepted, pruned = lemma1_select(

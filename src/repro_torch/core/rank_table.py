@@ -307,9 +307,16 @@ def apply_delta_corrections(scores: torch.Tensor, r_lo: torch.Tensor,
         shift_lo = add_lo - del_hi
         shift_hi = add_hi - del_lo
         shift_mid = 0.5 * (shift_lo + shift_hi)
-    top = float(corr.m_new) + 1.0
-    r_lo = torch.clamp(r_lo + shift_lo, 1.0, top)
-    r_up = torch.clamp(r_up + shift_hi, 1.0, top)
+    if isinstance(corr.m_new, torch.Tensor):
+        # m_new as a 0-d f32 device tensor (the elastic program's, read at
+        # replay): the same clip, min(max(x, 1), m' + 1), on its value
+        top = corr.m_new + 1.0
+        r_lo = torch.minimum(torch.clamp(r_lo + shift_lo, min=1.0), top)
+        r_up = torch.minimum(torch.clamp(r_up + shift_hi, min=1.0), top)
+    else:
+        top = float(corr.m_new) + 1.0
+        r_lo = torch.clamp(r_lo + shift_lo, 1.0, top)
+        r_up = torch.clamp(r_up + shift_hi, 1.0, top)
     est = est + shift_mid
     dead = ~corr.user_live[:, None]
     return (torch.where(dead, torch.inf, r_lo),

@@ -13,8 +13,8 @@ generation and never edit a published one:
   * writers serialize on the engine's mutation lock and publish strictly
     increasing epochs; publishing is one reference assignment.
 
-The reference's chaos site at publish (`faults.fire("index.publish")`)
-belongs to the serving stack and is not ported here.
+`publish` carries the chaos site `index.publish` (`serve.faults`): a
+hot-swap that dies between build and pointer install.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core.types import DeltaCorrection, RankTable, \
     RankTableConfig, StoredUsers
+from repro_torch.serve import faults
 
 if TYPE_CHECKING:       # annotations only: the engine imports this module
     from repro_torch.index.delta import BaseIndex, DeltaState
@@ -139,6 +140,10 @@ class SnapshotManager:
     def publish(self, snap: IndexSnapshot) -> IndexSnapshot:
         """Install a new generation; epochs must strictly increase (a
         stale publish means two writers did not serialize)."""
+        if faults.ACTIVE is not None:
+            # chaos site: a hot-swap dying between build and pointer
+            # install; the old generation must keep serving untorn
+            faults.fire("index.publish")
         with self._lock:
             if snap.epoch <= self._current.epoch:
                 raise RuntimeError(

@@ -38,6 +38,8 @@ SIGNATURES = {
         "k1_bound_ranks": (P, P, P, P, P, P, P, I, I, I, I, I, F, P),
         "k6_bound_ranks_masked": (P, P, P, P, P, P, P, P, I, I, I, I, I, F,
                                   I, I, P),
+        "k1_bound_ranks_elastic": (P, P, P, P, P, P, P, P, I, I, I, I, I, F,
+                                   P),
         "k1_launch_config": (I, I, I, I, P)},
     "user_scores_quant": {
         "k4_bound_ranks_bf16": (P, I, P, P, P, P, P, P, P, P, I, I, I, I, I,
@@ -49,6 +51,11 @@ SIGNATURES = {
         "k7_bound_ranks_int8_masked": (P, I, P, P, P, P, P, P, P, P, P, P, P,
                                        P, P, P, I, I, I, I, I, F, F, F, F, I,
                                        I, P),
+        "k4_bound_ranks_bf16_elastic": (P, I, P, P, P, P, P, P, P, P, P, I,
+                                        I, I, I, I, F, F, F, P),
+        "k5_bound_ranks_int8_elastic": (P, I, P, P, P, P, P, P, P, P, P, P,
+                                        P, P, P, P, I, I, I, I, I, F, F, F,
+                                        F, P),
         "quant_launch_config": (I, I, I, I, I, I, P)},
     "table_build": {"k2_plan": (I, I, I, P),
                     "k2_table_build": (P, P, P, P, P, P, I, I, I, I, I,

@@ -408,6 +408,8 @@ struct Args {
   int block_n;             // rows a map entry names
   int rows;                // compact rows to compute (n without a map)
   int ntiles;              // tiles of the launch
+  const int* n_valid;      // the elastic entries' row count, read on the
+                           // device (nullptr: rows); identity map only
   int tpe;                 // tiles a map entry spans (K7)
   Layout L;
 };
@@ -478,11 +480,11 @@ struct TileHdr {
 };
 
 template <bool MASKED>
-__device__ __forceinline__ TileHdr tile_of(const Args& a, int t) {
+__device__ __forceinline__ TileHdr tile_of(const Args& a, int t, int rows) {
   TileHdr h;
   if constexpr (!MASKED) {
     h.c0 = h.g0 = t * a.L.T;
-    h.cnt = h.live = min(a.L.T, a.rows - h.c0);
+    h.cnt = h.live = min(a.L.T, rows - h.c0);
   } else {
     const int e = t / a.tpe;
     const int j = (t - e * a.tpe) * a.L.T;
@@ -728,6 +730,12 @@ step1_ring_kernel(const __grid_constant__ Args a) {
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   if (!stream) stage_q<NB>(qs, a.Q, a.B, d, 0, d);
+  // An elastic entry reads its row count here, once: its tiles are the
+  // ⌈n_valid / T⌉ first of the capacity, each row computed as at any
+  // other count, and rows at or past n_valid are neither read nor
+  // written (a CUDA graph replays this launch at every count)
+  const int rows = a.n_valid ? max(0, min(*a.n_valid, a.rows)) : a.rows;
+  const int ntiles = a.n_valid ? (rows + a.L.T - 1) / a.L.T : a.ntiles;
   __syncthreads();
 
   if (warp == kWarps) {
@@ -735,7 +743,7 @@ step1_ring_kernel(const __grid_constant__ Args a) {
     // one fill with whole rows, a.L.nch in the chunked layout
     int i = 0;
     auto produce = [&](int t) {
-      const TileHdr h = tile_of<MASKED>(a, t);
+      const TileHdr h = tile_of<MASKED>(a, t, rows);
       const int stages = CHUNKED ? a.L.nch : 1;
       const int pieces = CHUNKED ? h.live : 1;
       for (int c = 0; c < stages; ++c, ++i) {
@@ -790,7 +798,7 @@ step1_ring_kernel(const __grid_constant__ Args a) {
         }
       }
     };
-    for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) produce(t);
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) produce(t);
     return;
   }
 
@@ -1022,7 +1030,7 @@ step1_ring_kernel(const __grid_constant__ Args a) {
       mbar_arrive(&empty[s]);
     }
   };
-  for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) consume();
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) consume();
   if (!pending && slot > 0) prepare<KIND, NB>(a, f);
   finish_batch(pending ? kG : slot);
 }

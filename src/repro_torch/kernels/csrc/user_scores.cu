@@ -48,6 +48,11 @@
 // Only the instances a call can reach are built: one query never stages
 // its thresholds rows.
 //
+// The elastic entry (k1_bound_ranks_elastic) is this kernel over operands
+// padded to a capacity, reading the valid row count from device memory;
+// it replaces the TPU kernel's tile unit repro/kernels/ops.py
+// bound_ranks_tile inside the elastic program (core/elastic.py).
+//
 // Contract: the outputs are bitwise those of K1's first kernel, at every
 // B and on every input it takes (any n, d, B, tau >= 1, block_n; views at
 // any 4-byte offset; duplicate and unordered ids under K6):
@@ -101,7 +106,8 @@ KernelFn resolve_f32(int, bool, int nb, bool masked, const Layout& L) {
 int run_f32(const float* U, const float* Q, const float* thr,
             const float* tab, const int* ids, float* r_lo, float* r_up,
             float* est, int n, int d, int B, int tau, int ldo,
-            float m_plus_1, int rows, int block_n, void* stream) {
+            float m_plus_1, int rows, int block_n, const int* n_valid,
+            void* stream) {
   Args a{};
   a.U = U;
   a.Q = Q;
@@ -119,6 +125,7 @@ int run_f32(const float* U, const float* Q, const float* thr,
   a.ids = ids;
   a.block_n = block_n;
   a.rows = rows;
+  a.n_valid = n_valid;
   return run(a, kF32, 1, resolve_f32, stream);
 }
 
@@ -132,7 +139,22 @@ extern "C" int k1_bound_ranks(const float* U, const float* Q,
                               int d, int B, int tau, int ldo,
                               float m_plus_1, void* stream) {
   return run_f32(U, Q, thr, tab, nullptr, r_lo, r_up, est, n, d, B, tau, ldo,
-                 m_plus_1, n, 1, stream);
+                 m_plus_1, n, 1, nullptr, stream);
+}
+
+// K1's elastic entry: operands padded to a capacity of `cap` rows, and the
+// valid row count read on the device from n_valid (one int32) when the
+// kernel starts, so that one launch (a CUDA graph's node) serves any
+// count. Rows below *n_valid are bitwise k1_bound_ranks's; rows at or
+// past it are not written.
+extern "C" int k1_bound_ranks_elastic(const float* U, const float* Q,
+                                      const float* thr, const float* tab,
+                                      const int* n_valid, float* r_lo,
+                                      float* r_up, float* est, int cap,
+                                      int d, int B, int tau, int ldo,
+                                      float m_plus_1, void* stream) {
+  return run_f32(U, Q, thr, tab, nullptr, r_lo, r_up, est, cap, d, B, tau,
+                 ldo, m_plus_1, cap, 1, n_valid, stream);
 }
 
 // K6: K1 over the nk tiles of block_n rows named by ids (nk,); outputs
@@ -145,7 +167,7 @@ extern "C" int k6_bound_ranks_masked(const float* U, const float* Q,
                                      float m_plus_1, int nk, int block_n,
                                      void* stream) {
   return run_f32(U, Q, thr, tab, ids, r_lo, r_up, est, n, d, B, tau, ldo,
-                 m_plus_1, nk * block_n, block_n, stream);
+                 m_plus_1, nk * block_n, block_n, nullptr, stream);
 }
 
 // The launch a K1 (masked 0) or K6 (masked 1) call at these sizes makes,

@@ -120,7 +120,7 @@ int run_bf16(const void* U, int rows_f32, const float* uslack,
              const void* tab, const int* ids, float* r_lo, float* r_up,
              float* est, int n, int d, int B, int tau, int ldo,
              float m_plus_1, float widen_up, float widen_lo, int rows,
-             int block_n, void* stream) {
+             int block_n, const int* n_valid, void* stream) {
   Args a{};
   a.U = U;
   a.uslack = uslack;
@@ -142,6 +142,7 @@ int run_bf16(const void* U, int rows_f32, const float* uslack,
   a.ids = ids;
   a.block_n = block_n;
   a.rows = rows;
+  a.n_valid = n_valid;
   return run(a, kBf16, rows_f32, resolve_quant, stream);
 }
 
@@ -153,7 +154,7 @@ int run_int8(const void* U, int rows_f32, const float* uscale,
              const int* ids, float* r_lo, float* r_up, float* est, int n,
              int d, int B, int tau, int ldo, float m_plus_1, float delta,
              float dev_pad, float widen_c, int rows, int block_n,
-             void* stream) {
+             const int* n_valid, void* stream) {
   Args a{};
   a.U = U;
   a.uscale = uscale;
@@ -181,6 +182,7 @@ int run_int8(const void* U, int rows_f32, const float* uscale,
   a.ids = ids;
   a.block_n = block_n;
   a.rows = rows;
+  a.n_valid = n_valid;
   return run(a, kInt8, rows_f32, resolve_quant, stream);
 }
 
@@ -199,7 +201,7 @@ extern "C" int k4_bound_ranks_bf16(const void* U, int rows_f32,
                                    float widen_lo, void* stream) {
   return run_bf16(U, rows_f32, uslack, Q, qnorm1, thr, tab, nullptr, r_lo,
                   r_up, est, n, d, B, tau, ldo, m_plus_1, widen_up, widen_lo,
-                  n, 1, stream);
+                  n, 1, nullptr, stream);
 }
 
 // rows_f32 != 0 takes f32 user rows (raw users against an int8 table: the
@@ -214,7 +216,37 @@ extern "C" int k5_bound_ranks_int8(
   return run_int8(U, rows_f32, uscale, uslack, Q, qnorm1, thr_sc, thr_off,
                   thr_dev, tab, tab_sc, tab_off, nullptr, r_lo, r_up, est, n,
                   d, B, tau, ldo, m_plus_1, delta, dev_pad, widen_c, n, 1,
-                  stream);
+                  nullptr, stream);
+}
+
+// The elastic entries of K4 and K5: operands padded to a capacity of `cap`
+// rows, the valid row count read on the device from n_valid (one int32)
+// when the kernel starts, so that one launch (a CUDA graph's node) serves
+// any count. Rows below *n_valid are bitwise k4/k5_bound_ranks's; rows
+// at or past it are not written.
+extern "C" int k4_bound_ranks_bf16_elastic(
+    const void* U, int rows_f32, const float* uslack, const float* Q,
+    const float* qnorm1, const void* thr, const void* tab,
+    const int* n_valid, float* r_lo, float* r_up, float* est, int cap,
+    int d, int B, int tau, int ldo, float m_plus_1, float widen_up,
+    float widen_lo, void* stream) {
+  return run_bf16(U, rows_f32, uslack, Q, qnorm1, thr, tab, nullptr, r_lo,
+                  r_up, est, cap, d, B, tau, ldo, m_plus_1, widen_up,
+                  widen_lo, cap, 1, n_valid, stream);
+}
+
+extern "C" int k5_bound_ranks_int8_elastic(
+    const void* U, int rows_f32, const float* uscale, const float* uslack,
+    const float* Q, const float* qnorm1, const float* thr_sc,
+    const float* thr_off, const float* thr_dev, const void* tab,
+    const float* tab_sc, const float* tab_off, const int* n_valid,
+    float* r_lo, float* r_up, float* est, int cap, int d, int B, int tau,
+    int ldo, float m_plus_1, float delta, float dev_pad, float widen_c,
+    void* stream) {
+  return run_int8(U, rows_f32, uscale, uslack, Q, qnorm1, thr_sc, thr_off,
+                  thr_dev, tab, tab_sc, tab_off, nullptr, r_lo, r_up, est,
+                  cap, d, B, tau, ldo, m_plus_1, delta, dev_pad, widen_c,
+                  cap, 1, n_valid, stream);
 }
 
 // K7 at bf16: K4 over the nk tiles of block_n rows named by ids (nk,);
@@ -227,7 +259,7 @@ extern "C" int k7_bound_ranks_bf16_masked(
     int block_n, void* stream) {
   return run_bf16(U, rows_f32, uslack, Q, qnorm1, thr, tab, ids, r_lo, r_up,
                   est, n, d, B, tau, ldo, m_plus_1, widen_up, widen_lo,
-                  nk * block_n, block_n, stream);
+                  nk * block_n, block_n, nullptr, stream);
 }
 
 // K7 at int8: K5 over the nk tiles of block_n rows named by ids (nk,).
@@ -242,7 +274,7 @@ extern "C" int k7_bound_ranks_int8_masked(
   return run_int8(U, rows_f32, uscale, uslack, Q, qnorm1, thr_sc, thr_off,
                   thr_dev, tab, tab_sc, tab_off, ids, r_lo, r_up, est, n, d,
                   B, tau, ldo, m_plus_1, delta, dev_pad, widen_c,
-                  nk * block_n, block_n, stream);
+                  nk * block_n, block_n, nullptr, stream);
 }
 
 // The launch a K4 (kind 0) or K5 (kind 1) call at these sizes makes, and

@@ -1,12 +1,16 @@
-"""Public wrappers of the CUDA kernels K1-K7.
+"""Public wrappers of the CUDA kernels K1-K7 and the elastic entries of
+K1, K4 and K5.
 
 Each wrapper checks dtype, shape, device and contiguity, then: for CPU
 tensors it runs the plain version in `ref.py`; for CUDA tensors it
 launches its kernel on PyTorch's current stream, or raises. There is no
 fallback from a CUDA tensor to the plain version.
 
-`LAUNCHES` counts kernel launches per kernel, and nothing else, so a run
-can show that its main path went through the kernels.
+`LAUNCHES` counts the launches a wrapper makes, per kernel, and nothing
+else, so a run can show that its main path went through the kernels. A
+call inside a CUDA graph capture counts (it puts the launch into the
+graph); the graph's replays call no wrapper and count nothing (the
+elastic program of `core.elastic` reports its replays itself).
 """
 from __future__ import annotations
 
@@ -15,13 +19,15 @@ from typing import Optional
 import torch
 
 from repro_torch.core.query import query_l1
-from repro_torch.core.types import RankTable, StoredUsers
+from repro_torch.core.types import RankTable, StoredUsers, stored_rows
 from repro_torch.kernels import exact_rank, ref, table_build, user_scores
 
 LAUNCHES = {"k1_bound_ranks": 0, "k2_table_build": 0, "k3_exact_ranks": 0,
             "k4_bound_ranks_bf16": 0, "k5_bound_ranks_int8": 0,
             "k6_bound_ranks_masked": 0, "k7_bound_ranks_bf16_masked": 0,
-            "k7_bound_ranks_int8_masked": 0}
+            "k7_bound_ranks_int8_masked": 0, "k1_bound_ranks_elastic": 0,
+            "k4_bound_ranks_bf16_elastic": 0,
+            "k5_bound_ranks_int8_elastic": 0}
 _QUANT_KERNEL = {"bf16": "k4_bound_ranks_bf16", "int8": "k5_bound_ranks_int8"}
 _QUANT_MASKED = {"bf16": "k7_bound_ranks_bf16_masked",
                  "int8": "k7_bound_ranks_int8_masked"}
@@ -91,9 +97,18 @@ def _check_f32_step1(users, qs, thresholds, table) -> None:
         raise ValueError(f"unsupported device {dev}")
 
 
+def _check_n_valid(n_valid: Optional[torch.Tensor], device) -> None:
+    if n_valid is None:
+        return
+    _check("n_valid", n_valid, 1, device, (torch.int32,))
+    if n_valid.shape[0] != 1:
+        raise ValueError(f"n_valid must hold one count, got shape "
+                         f"{tuple(n_valid.shape)}")
+
+
 def bound_ranks_batched(users: torch.Tensor, qs: torch.Tensor,
                         thresholds: torch.Tensor, table: torch.Tensor, *,
-                        m: int
+                        m: int, n_valid: Optional[torch.Tensor] = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1: fused scores + rank-table lookup for a (B, d) query block.
 
@@ -102,15 +117,24 @@ def bound_ranks_batched(users: torch.Tensor, qs: torch.Tensor,
     (n, B) results). On CUDA, one launch per 16 queries; each reads the
     thresholds row once for all its queries (one query reads only the few
     sectors of it that its search needs).
+
+    With `n_valid` (a 1-element int32 tensor on the operands' device) K1's
+    elastic entry runs instead (counted as `k1_bound_ranks_elastic`): the
+    operands are padded to a capacity of n rows, of which the first
+    n_valid are valid (`bound_ranks_batched_stored`).
     """
     _check_f32_step1(users, qs, thresholds, table)
+    _check_n_valid(n_valid, users.device)
     if users.device.type == "cpu":
-        r_lo, r_up, est = ref.ref_bound_ranks(users, qs, thresholds, table, m)
-        return r_lo.T, r_up.T, est.T
+        out = ref.ref_bound_ranks(users, qs, thresholds, table, m)
+        if n_valid is not None:
+            out = ref.ref_rows_past(out, n_valid, m)
+        return tuple(x.T for x in out)
+    name = "k1_bound_ranks" if n_valid is None else "k1_bound_ranks_elastic"
     return _per_launch(
-        "k1_bound_ranks", users.shape[0], qs.shape[0], users.device,
+        name, users.shape[0], qs.shape[0], users.device,
         lambda b0, b1, *o: user_scores.bound_ranks_batched_kernel_call(
-            users, qs[b0:b1], thresholds, table, *o, m=m))
+            users, qs[b0:b1], thresholds, table, *o, m=m, n_valid=n_valid))
 
 
 def bound_ranks_batched_pruned(users: torch.Tensor, qs: torch.Tensor,
@@ -205,7 +229,8 @@ def _quant_operands(users, qs: torch.Tensor, rt: RankTable):
     return rows, uscale, uslack, query_l1(qs)
 
 
-def bound_ranks_batched_stored(users, qs: torch.Tensor, rt: RankTable
+def bound_ranks_batched_stored(users, qs: torch.Tensor, rt: RankTable,
+                               n_valid: Optional[torch.Tensor] = None
                                ) -> tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """The fused backend's step 1, dispatched on the table's storage.
@@ -216,6 +241,18 @@ def bound_ranks_batched_stored(users, qs: torch.Tensor, rt: RankTable
     (unit scale, zero slack). ‖q‖₁ is computed once and shared by every
     launch and the plain version. Returns (r_lo, r_up, est), each (B, n),
     query-major. On CUDA, one launch per 16 queries.
+
+    With `n_valid`, a 1-element int32 tensor on the operands' device, the
+    elastic entry of K1, K4 or K5 runs instead (counterpart of the TPU
+    tile unit `repro/kernels/ops.py::bound_ranks_tile`, counted under the
+    kernel's name + `_elastic`): the operands are padded to a capacity of
+    n rows, of which the first n_valid are valid. The kernel reads the
+    count on the device when it starts, so a CUDA graph replays the same
+    launches at any count; its tile loop covers ⌈n_valid / T⌉ tiles, each
+    row bitwise the full entry's, and rows at or past n_valid are not
+    written (the plain version sets them to m + 2): the caller masks
+    them. `rt.m` must be a Python int (the kernels take m + 1 as an
+    argument).
     """
     kind = rt.spec_kind
     if kind == "f32":
@@ -223,16 +260,21 @@ def bound_ranks_batched_stored(users, qs: torch.Tensor, rt: RankTable
             raise ValueError("quantized user storage requires a quantized "
                              "rank table (uniform StorageSpec)")
         return bound_ranks_batched(users, qs, rt.thresholds, rt.table,
-                                   m=rt.m)
+                                   m=rt.m, n_valid=n_valid)
     rows, uscale, uslack, qnorm1 = _quant_operands(users, qs, rt)
+    _check_n_valid(n_valid, rows.device)
     if rows.device.type == "cpu":
-        r_lo, r_up, est = ref.ref_bound_ranks_stored(rows, uscale, uslack,
-                                                     qs, qnorm1, rt)
-        return r_lo.T, r_up.T, est.T
+        out = ref.ref_bound_ranks_stored(rows, uscale, uslack, qs, qnorm1,
+                                         rt)
+        if n_valid is not None:
+            out = ref.ref_rows_past(out, n_valid, rt.m)
+        return tuple(x.T for x in out)
+    name = _QUANT_KERNEL[kind] + ("" if n_valid is None else "_elastic")
     return _per_launch(
-        _QUANT_KERNEL[kind], rows.shape[0], qs.shape[0], rows.device,
+        name, rows.shape[0], qs.shape[0], rows.device,
         lambda b0, b1, *o: user_scores.bound_ranks_quant_kernel_call(
-            kind, rows, uscale, uslack, qs[b0:b1], qnorm1[b0:b1], rt, *o))
+            kind, rows, uscale, uslack, qs[b0:b1], qnorm1[b0:b1], rt, *o,
+            n_valid=n_valid))
 
 
 def bound_ranks_batched_pruned_stored(users, qs: torch.Tensor,

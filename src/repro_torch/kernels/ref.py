@@ -2,8 +2,8 @@
 
 The CPU path of every wrapper in `ops.py` (`ref_bound_ranks`,
 `ref_bound_ranks_stored`, their masked twins `ref_bound_ranks_masked`
-and `ref_bound_ranks_stored_masked`, `estimate_table_rows`,
-`ref_exact_counts`),
+and `ref_bound_ranks_stored_masked`, the elastic entries' mask
+`ref_rows_past`, `estimate_table_rows`, `ref_exact_counts`),
 and what the tests and the chip smoke run hold each CUDA kernel against.
 `ref_table_rows` computes
 Eq. (1) a second way, by direct comparison, as an independent check of
@@ -88,6 +88,20 @@ def ref_bound_ranks_stored_masked(rows: torch.Tensor,
         return ref_bound_ranks_stored(su.rows, su.scale, su.row_slack, qs,
                                       qnorm1, rt.take_rows(g))
     return _masked(gathered, block_ids, block_n, rows.shape[0], rt.m)
+
+
+def ref_rows_past(bounds, n_valid: torch.Tensor, m) -> tuple:
+    """The elastic entries' plain version, after `ref_bound_ranks` or
+    `ref_bound_ranks_stored` scored EVERY row of the capacity: rows at or
+    past n_valid (a 1-element int32 tensor, compared on its device, no
+    host read) set to m + 2 in all three (n, B) outputs. The kernels
+    leave those rows unwritten; every caller masks them."""
+    cap = bounds[0].shape[0]
+    past = torch.arange(cap, dtype=torch.int32,
+                        device=n_valid.device)[:, None] >= n_valid
+    fill = torch.full((), float(m) + 2.0, dtype=torch.float32,
+                      device=n_valid.device)
+    return tuple(torch.where(past, fill, x) for x in bounds)
 
 
 def estimate_table_rows(scores: torch.Tensor, weights: torch.Tensor,

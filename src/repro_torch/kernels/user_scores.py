@@ -10,6 +10,12 @@ CUDA source is `csrc/user_scores.cu` and its public wrapper
 `csrc/user_scores_quant.cu` and their public wrapper
 `ops.bound_ranks_batched_stored`.
 
+The elastic entries of K1, K4 and K5 (`n_valid=`) read their row count
+from device memory when they start, so that a CUDA graph of the elastic
+program (`core.elastic`) replays one launch at every count; they take
+the place of the TPU tile unit `repro/kernels/ops.py::bound_ranks_tile`
+(`ops.bound_ranks_batched_stored(..., n_valid)`).
+
 K6 and K7 replace the masked-grid kernels of block pruning
 (`bound_ranks_batched_masked_kernel_call` and
 `bound_ranks_batched_quant_masked_kernel_call`): the same kernels behind
@@ -56,17 +62,26 @@ def bound_ranks_batched_kernel_call(users: torch.Tensor, qs: torch.Tensor,
                                     r_up: torch.Tensor, est: torch.Tensor, *,
                                     m: int,
                                     block_ids: Optional[torch.Tensor] = None,
-                                    block_n: int = 0) -> None:
+                                    block_n: int = 0,
+                                    n_valid: Optional[torch.Tensor] = None
+                                    ) -> None:
     """One K1 launch for ≤ 16 queries qs (nb, d), or with `block_ids`
     (nk,) int32 one K6 launch over the nk tiles of `block_n` rows they
-    name. Writes row-major (rows, nb) outputs, rows = n or nk·block_n,
-    which may be column slices of wider arrays (row stride
+    name, or with `n_valid` (a 1-element int32 device tensor) one launch
+    of K1's elastic entry over the first *n_valid of the n rows, read on
+    the device. Writes row-major (rows, nb) outputs, rows = n or
+    nk·block_n, which may be column slices of wider arrays (row stride
     r_lo.stride(0)). Inputs are checked by the caller."""
     n, d = users.shape
     stream = torch.cuda.current_stream(users.device).cuda_stream
     common = (r_lo.data_ptr(), r_up.data_ptr(), est.data_ptr(), n, d,
               qs.shape[0], thresholds.shape[1], r_lo.stride(0),
               float(m + 1))
+    if n_valid is not None:
+        _build.call("user_scores", "k1_bound_ranks_elastic",
+                    users.data_ptr(), qs.data_ptr(), thresholds.data_ptr(),
+                    table.data_ptr(), n_valid.data_ptr(), *common, stream)
+        return
     if block_ids is None:
         _build.call("user_scores", "k1_bound_ranks", users.data_ptr(),
                     qs.data_ptr(), thresholds.data_ptr(), table.data_ptr(),
@@ -84,10 +99,14 @@ def bound_ranks_quant_kernel_call(kind: str, rows: torch.Tensor,
                                   rt, r_lo: torch.Tensor, r_up: torch.Tensor,
                                   est: torch.Tensor,
                                   block_ids: Optional[torch.Tensor] = None,
-                                  block_n: int = 0) -> None:
+                                  block_n: int = 0,
+                                  n_valid: Optional[torch.Tensor] = None
+                                  ) -> None:
     """One K4 (kind "bf16") or K5 (kind "int8") launch for ≤ 16 queries
     qs (nb, d) with their ‖q‖₁ `qnorm1` (nb,), or with `block_ids` one
-    K7 launch over the tiles they name. rows are the stored dtype or
+    K7 launch over the tiles they name, or with `n_valid` (a 1-element
+    int32 device tensor) one launch of the elastic entry over the first
+    *n_valid rows, read on the device. rows are the stored dtype or
     f32; uslack (n, 1) f32, and for K5 uscale (n, 1) f32. Writes
     row-major (rows, nb) outputs, which may be column slices of wider
     arrays. Inputs are checked by the caller."""
@@ -98,18 +117,22 @@ def bound_ranks_quant_kernel_call(kind: str, rows: torch.Tensor,
     common = (r_lo.data_ptr(), r_up.data_ptr(), est.data_ptr(), n, d,
               qs.shape[0], tau, r_lo.stride(0), float(rt.m + 1))
     masked = block_ids is not None
-    ids = (block_ids.data_ptr(),) if masked else ()
+    elastic = n_valid is not None
+    ids = (block_ids.data_ptr(),) if masked else \
+        (n_valid.data_ptr(),) if elastic else ()
     tail = (block_ids.shape[0], block_n, stream) if masked else (stream,)
+    suffix = "_masked" if masked else "_elastic" if elastic else ""
     if kind == "bf16":
-        symbol = "k7_bound_ranks_bf16_masked" if masked \
-            else "k4_bound_ranks_bf16"
+        symbol = ("k7_bound_ranks_bf16" if masked
+                  else "k4_bound_ranks_bf16") + suffix
         _build.call("user_scores_quant", symbol, rows.data_ptr(), rows_f32,
                     uslack.data_ptr(), qs.data_ptr(), qnorm1.data_ptr(),
                     rt.thresholds.data_ptr(), rt.table.data_ptr(), *ids,
                     *common, 1.0 + EPS_BF16, 1.0 - EPS_BF16, *tail)
         return
     delta, dev_pad, widen_c = int8_constants(tau)
-    symbol = "k7_bound_ranks_int8_masked" if masked else "k5_bound_ranks_int8"
+    symbol = ("k7_bound_ranks_int8" if masked
+              else "k5_bound_ranks_int8") + suffix
     _build.call("user_scores_quant", symbol, rows.data_ptr(), rows_f32,
                 uscale.data_ptr(), uslack.data_ptr(), qs.data_ptr(),
                 qnorm1.data_ptr(), rt.thr_scale.data_ptr(),

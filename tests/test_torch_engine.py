@@ -114,7 +114,12 @@ def test_engine_rejects_bad_queries_and_backends(flow):
                             backend="sharded")
     with pytest.raises(ValueError, match="unknown backend wrapper"):
         ReverseKRanksEngine(st.users, st.rank_table, RankTableConfig(),
-                            backend="cached:fused")
+                            backend="sharded:fused")
+    # the cached and elastic wrappers resolve (lazily imported)
+    for spec in ("cached:fused", "elastic:fused"):
+        assert ReverseKRanksEngine(st.users, st.rank_table,
+                                   RankTableConfig(),
+                                   backend=spec).backend_name == spec
     assert ReverseKRanksEngine.backends() == ["dense", "fused", "pruned"]
     assert (eng.n, eng.d) == (N, D)
 

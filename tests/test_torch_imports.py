@@ -1,6 +1,7 @@
 """The port imports neither JAX (nor `ml_dtypes`, JAX's bf16 type) nor
-the reference package, and its entry points never fall back to the CPU
-quietly."""
+the reference package, also while it serves through `MicroBatcher` on
+the elastic and cached backends, and its entry points never fall back to
+the CPU quietly."""
 import ast
 import os
 import subprocess
@@ -55,6 +56,20 @@ for inner in ("dense", "fused"):
         device="cpu", cluster_reorder=True)
     assert eng.user_remap is not None
     assert eng.query_batch(items[:3], 5, 2.0).indices.shape == (3, 5)
+from repro_torch.serve import MicroBatcher
+users, items = synthetic_embeddings(0, 64, 40, 8, device="cpu")
+for backend in ("elastic:fused", "cached:elastic:dense"):
+    eng = ReverseKRanksEngine.build(users, items, RankTableConfig(tau=8,
+                                    omega=2, s=4), 0, backend=backend,
+                                    device="cpu")
+    mb = MicroBatcher(eng, max_batch=4, max_wait_ms=1.0)
+    try:
+        futs = [mb.submit(items[i].numpy(), 5, 2.0) for i in range(6)]
+        want = eng.query_batch(items[:6], 5, 2.0)
+        for i, f in enumerate(futs):
+            assert torch.equal(f.result(timeout=60).indices, want.indices[i])
+    finally:
+        mb.close()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
 assert not bad, bad
