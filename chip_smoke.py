@@ -135,6 +135,31 @@ Phases, each fatal on failure (exit code 1, no result line):
      with ticks in flight; then the elastic entries on the padded
      operands at n_valid = n, timed beside the existing entries at n,
      and the peak device memory.
+  7. durability, the maintenance loop and the quality auditor
+     (`durability_checks`), in a spill directory from tempfile.mkdtemp()
+     whose free bytes must hold three f32 spills: (a) phase 4d's data and
+     churn on f32 and int8 fused engines built with BUILD_SEED under an
+     IndexPersister, with the spill's bytes and its stages' times and
+     each WAL append's latency; `restore` on the card bitwise the running
+     engine (epoch, users, every RankTable field, delta state, stored
+     users, correction, sampling and generator state, user_remap,
+     query_batch and query), and bitwise again after both rebuild; (b)
+     the rebuild's swap_s with and without a persister, and the wait of
+     an insert issued during the rebuild's locked spill; (c) a
+     MaintenanceLoop with a persister on a mutable elastic:fused engine
+     while 4 client threads serve through MicroBatcher (depth 2) and 96
+     items go in in 4 batches: one rebuild, one program built for each
+     new key (the delta widths 32, 64, 128, then the static path at
+     m + 96) and none per tick, every result bitwise its snapshot's
+     synchronous query_batch; (d) a QualityAuditor at fraction 1.0 on
+     phase 4's queries, equal to phase 4's own §5 grades (rtol 1e-12),
+     one K3 launch a sample, on the auditor's stream; (e) phase 6's burst
+     without an auditor, with one at fraction 0.05, and with one and the
+     dispatch stream at priority 0 in place of the scheduler's -1:
+     queries/s, p50/p99, backlog, flush
+     time, K3 launches = samples scored; (f) phase 4c (iii)'s engine:
+     the prune_skip_rate gauge equals stats.skip_rate, and the prune.*
+     span times beside the query's.
 
 `--digests SRC` runs only phase 4's data, its f32 build, K3 grading,
 phase 4c's reordered f32 engine and the storage tier's tables with the
@@ -2112,6 +2137,612 @@ def serving_checks(dev, *, users, items, cfg, pos, w, qs, engines,
     return report
 
 
+# ----------------------------------------- durability, maintenance, audit
+AUDIT_FRACTION = 0.05              # phase 7 (e)'s sampled share
+LOOP_INSERT = 96                   # phase 7 (c)'s inserts, in 4 batches
+SPILLS_NEEDED = 3                  # spills a directory holds at its peak
+
+
+def spill_estimate(snap) -> int:
+    """The bytes of the arrays a spill of `snap` stores (users, the packed
+    table, the base items, the inserted items), before the npz framing."""
+    sz = lambda t: 0 if t is None else t.numel() * t.element_size()
+    rt = snap.rank_table
+    total = sz(snap.users) + sz(snap.base.items) + sum(
+        sz(getattr(rt, f)) for f in ("thresholds", "table", "thr_scale",
+                                     "thr_off", "tab_scale", "tab_off",
+                                     "thr_dev"))
+    return total + sz(snap.delta.added_items)
+
+
+def engines_equal(torch, np, got, want, qs, q1, label):
+    """Check that a restored engine is bitwise the engine it stands for:
+    the epoch, the users, every RankTable field, the delta state, the
+    stored users, the correction, the base's sampling state, the
+    generator's state, user_remap, and every field of query_batch(qs)
+    and query(q1)."""
+    gs, ws = got.current_snapshot(), want.current_snapshot()
+    check(gs.epoch == ws.epoch, f"{label}: epoch {gs.epoch} != {ws.epoch}")
+    check(got._next_item_id == want._next_item_id,
+          f"{label}: the next item id differs")
+
+    def same(a, b, what):
+        check((a is None) == (b is None)
+              and (a is None or (a.dtype == b.dtype and a.shape == b.shape
+                                 and torch.equal(a, b))),
+              f"{label}: {what} differs")
+
+    same(gs.users, ws.users, "users")
+    for f in ws.rank_table._fields:
+        if f == "m":
+            check(gs.rank_table.m == ws.rank_table.m, f"{label}: m differs")
+        else:
+            same(getattr(gs.rank_table, f), getattr(ws.rank_table, f),
+                 f"rank_table.{f}")
+    for f in ("base_live", "added_ids", "user_live"):
+        check(np.array_equal(getattr(gs.delta, f), getattr(ws.delta, f)),
+              f"{label}: delta.{f} differs")
+    check(gs.delta.touched_users == ws.delta.touched_users,
+          f"{label}: delta.touched_users differs")
+    same(gs.delta.added_items, ws.delta.added_items, "delta.added_items")
+    check((gs.stored_users is None) == (ws.stored_users is None),
+          f"{label}: stored users present in one engine only")
+    if ws.stored_users is not None:
+        for f in ws.stored_users._fields:
+            same(getattr(gs.stored_users, f), getattr(ws.stored_users, f),
+                 f"stored_users.{f}")
+    check((gs.corr is None) == (ws.corr is None),
+          f"{label}: a correction in one engine only")
+    if ws.corr is not None:
+        check(gs.corr.m_new == ws.corr.m_new, f"{label}: m_new differs")
+        for f in ws.corr._fields:
+            if f != "m_new":
+                same(getattr(gs.corr, f), getattr(ws.corr, f), f"corr.{f}")
+    for f in ("items", "positions", "weights", "samples", "order"):
+        same(getattr(gs.base, f), getattr(ws.base, f), f"base.{f}")
+    check(np.array_equal(gs.base.item_ids, ws.base.item_ids),
+          f"{label}: base item ids differ")
+    gg, wg = got._generator_state, want._generator_state
+    check((gg is None) == (wg is None)
+          and (gg is None or torch.equal(gg[1], wg[1])),
+          f"{label}: the generator's state differs")
+    check((gs.user_remap is None) == (ws.user_remap is None)
+          and (ws.user_remap is None
+               or np.array_equal(gs.user_remap, ws.user_remap)),
+          f"{label}: user_remap differs")
+    same_result(torch, got.query_batch(qs, K, C), want.query_batch(qs, K, C),
+                f"{label}: query_batch(B={qs.shape[0]})")
+    same_result(torch, got.query(q1, K, C), want.query(q1, K, C),
+                f"{label}: query")
+
+
+def durability_checks(dev, *, users, items, cfg, rt, pos, w, qs, grades,
+                      pruned, n=N, m=M, d=D, tau=TAU, n_serve=SERVE_Q,
+                      gen_seed=1, avoid=None, timing=True):
+    """Phase 7: durability, the maintenance loop and the quality auditor
+    on the card (or, for a rehearsal, the CPU), each check fatal.
+
+    `users`, `items`, `cfg`, `rt`, `pos`, `w`, `qs` are phase 4's (its
+    samples drawn by a generator seeded `gen_seed`), `grades` its per-query
+    (accuracy, overall ratio) lists of the fused engine, `pruned` phase
+    4c (iii)'s (users, rank table, hot batch, skip rate, fallback).
+
+      (a) phase 4d's data and churn on an f32 fused engine built with
+          seed BUILD_SEED under an IndexPersister: the spill's bytes and
+          its stages' times, each WAL append's latency; `restore` on the
+          device, bitwise the running engine (epoch, users, every
+          RankTable field, delta state, stored users, correction,
+          sampling state, user_remap, query_batch and query); then both
+          rebuilt, bitwise again; the same at int8 (a packed spill);
+      (b) `swap_s` of the rebuild with a persister (the spill under the
+          mutation lock) and without (the restored engine's), and the
+          wait of an insert_items issued while a rebuild's spill holds
+          the lock;
+      (c) MaintenanceLoop with a persister on a mutable elastic:fused
+          engine over phase 4's table and samples: 4 client threads
+          serve through MicroBatcher (depth 2) while a thread inserts 96
+          items in 4 batches; the policy fires once, after the fourth;
+          the loop rebuilds; programs are built once for each new key
+          (the delta widths 32, 64 and 128, then the static path at
+          m + 96) and never per tick; every result (indices, est, R_k,
+          guaranteed, counters bitwise, r_lo/r_up by the CRC32 of their
+          bytes) is its snapshot's synchronous query_batch;
+      (d) a QualityAuditor at fraction 1.0 behind MicroBatcher on phase
+          4's queries: its overall ratio and accuracy equal the mean of
+          phase 4's own grades (rtol 1e-12), 16 scored with one K3
+          launch each;
+      (e) phase 6's burst (n_serve queries from 4 threads, depth 1 and 2,
+          results held) without an auditor, with one at AUDIT_FRACTION,
+          and with one and the dispatch stream at priority 0 in place
+          of the scheduler's −1 (`_DISPATCH_STREAM_PRIORITY`):
+          queries/s, p50/p99, the auditor's backlog and flush time; in
+          each audited burst's launch window K3 launches = scored;
+      (f) on phase 4c (iii)'s engine and hot batch, the
+          `prune_skip_rate` gauge equals the backend's
+          `stats.skip_rate`; the mean `prune.phase_a` / `prune.phase_b`
+          span times beside the query's time.
+
+    Returns a report: the checks passed and the numbers printed."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import zlib
+    import numpy as np
+    import torch
+    from repro_torch.core import elastic
+    from repro_torch.core.backends import PrunedBackend
+    from repro_torch.core.engine import ReverseKRanksEngine
+    from repro_torch.core.types import RankTableConfig
+    from repro_torch.data.pipeline import synthetic_embeddings
+    from repro_torch.index import (IndexPersister, MaintenanceLoop,
+                                   MaintenancePolicy)
+    from repro_torch.kernels import ops
+    from repro_torch.obs import QualityAuditor
+    from repro_torch.obs import registry as obs
+    from repro_torch.obs import trace
+    from repro_torch.serve import MicroBatcher, scheduler
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    report = {"checks": []}
+
+    class TimedPersister(IndexPersister):
+        """An IndexPersister that times each WAL append and flags each
+        spill as it starts."""
+
+        def __init__(self, path):
+            super().__init__(path)
+            self.appends = []
+            self.spilling = threading.Event()
+
+        def spill(self, *a, **kw):
+            self.spilling.set()
+            return super().spill(*a, **kw)
+
+        def append(self, op, arrays):
+            t0 = time.perf_counter()
+            ok = super().append(op, arrays)
+            self.appends.append((op, time.perf_counter() - t0))
+            check(ok, f"the WAL append of {op} failed")
+            return ok
+
+    def spill_line(p, what):
+        st = p.last_spill
+        return (f"{what}: {st.bytes} bytes in "
+                f"{st.d2h_s + st.encode_s + st.write_s:.3f} s (copies to "
+                f"the host {st.d2h_s:.3f} s, npz encode and CRC32 "
+                f"{st.encode_s:.3f} s, write, fsync and rename "
+                f"{st.write_s:.3f} s)")
+
+    tmp = tempfile.mkdtemp(prefix="spills-")
+    try:
+        # (a) spill, WAL and restore on phase 4d's data and churn
+        users_d, items_d, qs_d, q1_d, churn = delta_data(
+            torch, synthetic_embeddings, dev, n, m, d, *CHURN.values(), B,
+            avoid)
+        q1 = q1_d[0]
+        cfgs = {spec: RankTableConfig(tau=tau, omega=OMEGA, s=S_PER,
+                                      storage_dtype=spec)
+                for spec in ("f32", "int8")}
+        eng = ReverseKRanksEngine.build(users_d, items_d, cfgs["f32"],
+                                        BUILD_SEED, backend="fused",
+                                        device=dev)
+        need = spill_estimate(eng.current_snapshot())
+        free = shutil.disk_usage(tmp).free
+        print(f"  spill directory {tmp}: {free} bytes free; an f32 spill "
+              f"stores about {need} bytes, {SPILLS_NEEDED} of them "
+              f"{SPILLS_NEEDED * need}")
+        check(free >= SPILLS_NEEDED * need,
+              f"{free} bytes free in {tmp}, below the {SPILLS_NEEDED * need}"
+              f" bytes of {SPILLS_NEEDED} f32 spills")
+        spills = {}
+        d32 = os.path.join(tmp, "f32")
+        p32 = TimedPersister(d32)
+        eng.attach_persister(p32)
+        spills["f32"] = p32.last_spill
+        print("  (a) " + spill_line(p32, "f32 baseline spill (attach)"))
+        churn.apply(torch, ops, eng)
+        sync()
+        print("  (a) WAL appends, each with its fsync: " + "; ".join(
+            f"{op} {s * 1e3:.3f} ms" for op, s in p32.appends))
+        t0 = time.perf_counter()
+        got = ReverseKRanksEngine.restore(d32, backend="fused", device=dev)
+        sync()
+        restore_s = time.perf_counter() - t0
+        engines_equal(torch, np, got, eng, qs_d, q1, "(a) f32 restore")
+        print(f"  (a) restore on {dev.type} {restore_s:.3f} s (read, "
+              f"checks, rebuild of the snapshot, {len(p32.appends)} WAL "
+              "records replayed): bitwise the running engine: epoch, "
+              "users, every RankTable field, delta state, correction, "
+              "sampling state, generator state, user_remap, query_batch "
+              f"(B={B}) and query")
+        rec_p = eng.rebuild()
+        rec_n = got.rebuild()
+        sync()
+        check(rec_p is not None and rec_n is not None,
+              "(a) a rebuild did not run")
+        engines_equal(torch, np, got, eng, qs_d, q1,
+                      "(a) f32 rebuild after restore")
+        print("  (a) " + spill_line(p32, "f32 rebuild spill"))
+        print("  (a) rebuild() of both: bitwise equal again")
+        report["checks"].append("a")
+
+        # (b) the rebuild's locked spill
+        print(f"  (b) swap_s of rebuild(): {rec_p.swap_s:.4f} s with a "
+              f"persister (its spill under the mutation lock), "
+              f"{rec_n.swap_s:.4f} s without; build_s {rec_p.build_s:.4f}"
+              f" / {rec_n.build_s:.4f} s")
+        extra = items_d[:8] * 1.01
+        sync()
+        t0 = time.perf_counter()
+        eng.insert_items(extra[:4])
+        sync()
+        free_insert = time.perf_counter() - t0
+        p32.spilling.clear()
+        out = {}
+        th = threading.Thread(target=lambda: out.update(rec=eng.rebuild()))
+        th.start()
+        check(p32.spilling.wait(timeout=300),
+              "(b) the rebuild's spill never started")
+        t0 = time.perf_counter()
+        eng.insert_items(extra[4:])
+        sync()
+        waited = time.perf_counter() - t0
+        th.join(timeout=600)
+        check(not th.is_alive() and out.get("rec") is not None,
+              "(b) the concurrent rebuild did not finish")
+        print(f"  (b) insert_items(4 items) issued once the rebuild's spill "
+              f"had started returned after {waited:.3f} s (rebuild swap_s "
+              f"{out['rec'].swap_s:.3f} s); insert_items(4 items) with no "
+              f"spill in progress {free_insert * 1e3:.3f} ms (both with "
+              "their WAL append)")
+        report["b"] = dict(with_persister=rec_p.swap_s,
+                           without=rec_n.swap_s, insert_wait=waited,
+                           insert_free=free_insert)
+        report["checks"].append("b")
+        p32.close()
+        del eng, got, rec_p, rec_n
+        shutil.rmtree(d32, ignore_errors=True)
+
+        # (a) again at int8: the packed spill
+        eng = ReverseKRanksEngine.build(users_d, items_d, cfgs["int8"],
+                                        BUILD_SEED, backend="fused",
+                                        device=dev)
+        d8 = os.path.join(tmp, "int8")
+        p8 = TimedPersister(d8)
+        eng.attach_persister(p8)
+        spills["int8"] = p8.last_spill
+        print("  (a) " + spill_line(p8, "int8 baseline spill (attach)"))
+        churn.apply(torch, ops, eng)
+        t0 = time.perf_counter()
+        got = ReverseKRanksEngine.restore(d8, backend="fused", device=dev)
+        sync()
+        restore8 = time.perf_counter() - t0
+        engines_equal(torch, np, got, eng, qs_d, q1, "(a) int8 restore")
+        check(eng.rebuild() is not None and got.rebuild() is not None,
+              "(a) an int8 rebuild did not run")
+        engines_equal(torch, np, got, eng, qs_d, q1,
+                      "(a) int8 rebuild after restore")
+        print(f"  (a) int8: restore {restore8:.3f} s, bitwise; rebuild() of "
+              "both bitwise again; " + spill_line(p8, "int8 rebuild spill"))
+        p8.close()
+        del eng, got
+        shutil.rmtree(d8, ignore_errors=True)
+        report["spills"] = spills
+        report["restore_s"] = restore_s
+        report["wal"] = list(p32.appends)
+        del users_d, items_d, qs_d, churn
+
+        # (c) the maintenance loop under serving
+        g = torch.Generator(device=dev)
+        g.manual_seed(gen_seed)
+        eng_c = ReverseKRanksEngine(users, rt, cfg, backend="elastic:fused",
+                                    items=items, positions=pos, weights=w,
+                                    generator_state=(dev, g.get_state()))
+        check(torch.equal(eng_c._draw(m)[0], pos),
+              "(c) the generator state does not draw phase 4's samples")
+        dc = os.path.join(tmp, "loop")
+        pc = TimedPersister(dc)
+        eng_c.attach_persister(pc)
+        print("  (c) " + spill_line(pc, "baseline spill (attach)"))
+        qids = (torch.arange(n_serve, device=dev) * 7 + 3) % m
+        qh = items[qids].cpu().numpy()
+        new = (items[-LOOP_INSERT:] * 1.25).contiguous()
+        per = LOOP_INSERT // 4
+        eng_c.query_batch(torch.from_numpy(qh[:16]).to(dev), K, C)  # warm
+        sync()
+        served, lock = [], threading.Lock()
+
+        class Recorder:
+            """The auditor hook of MicroBatcher, used to record what each
+            resolved request was served from: its query, its snapshot, its
+            small fields and the CRC32 of its r_lo / r_up bytes."""
+
+            def observe(self, q, result, *, k, c, snapshot=None):
+                crc = tuple(zlib.crc32(np.ascontiguousarray(getattr(
+                    result, f).numpy())) for f in ("r_lo", "r_up"))
+                small = tuple(getattr(result, f) for f in result._fields
+                              if f not in ("r_lo", "r_up"))
+                with lock:
+                    served.append((np.array(q), snapshot, small, crc))
+                return False
+
+        # fires after the fourth batch, not the third
+        policy = MaintenancePolicy(max_delta_ratio=(LOOP_INSERT - per / 2)
+                                   / m)
+        programs0 = elastic.elastic_trace_count()
+        stop = threading.Event()
+        errors = []
+        mb = MicroBatcher(eng_c, max_batch=16, max_wait_ms=2.0,
+                          pipeline_depth=2, auditor=Recorder())
+        ml = MaintenanceLoop(eng_c, policy=policy, poll_ms=5.0)
+        insert_s = []
+        try:
+            def client(t):
+                i = t
+                try:
+                    while not stop.is_set():
+                        futs = []
+                        for _ in range(8):
+                            futs.append(mb.submit(qh[i % n_serve], K, C))
+                            i += SERVE_THREADS
+                        for f in futs:
+                            f.result(timeout=300)
+                except Exception as e:          # reported below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(SERVE_THREADS)]
+            t_start = time.perf_counter()
+            for th in threads:
+                th.start()
+            for j in range(4):
+                time.sleep(0.1)
+                t0 = time.perf_counter()
+                eng_c.insert_items(new[per * j:per * (j + 1)])
+                insert_s.append(time.perf_counter() - t0)
+            deadline = time.monotonic() + 600
+            while not ml.rebuilds and time.monotonic() < deadline:
+                ml.wake()
+                time.sleep(0.01)
+            time.sleep(0.3)             # serve the rebuilt epoch a while
+            stop.set()
+            for th in threads:
+                th.join(timeout=300)
+            wall = time.perf_counter() - t_start
+        finally:
+            stop.set()
+            ml.close()
+            mb.close()
+        sync()
+        programs1 = elastic.elastic_trace_count()
+        check(not errors, f"(c) client errors: {errors[:3]}")
+        check(len(ml.rebuilds) == 1 and not ml.failures,
+              f"(c) {len(ml.rebuilds)} rebuilds, {len(ml.failures)} "
+              "failures, expected one rebuild")
+        rec = ml.rebuilds[0]
+        check(rec.reason.startswith("delta_ratio")
+              and eng_c.rank_table.m == m + LOOP_INSERT,
+              f"(c) the rebuild ({rec.reason}) did not absorb the inserts")
+        ticks = [t for t in mb.tick_log if t.batch > 0]
+        compiles = sum(t.compiles for t in ticks)
+        check(programs1 - programs0 == 4 and compiles == 4,
+              f"(c) {programs1 - programs0} programs built ({compiles} in "
+              "ticks), expected 4: the delta widths 32, 64, 128 and the "
+              f"static path at m + {LOOP_INSERT}, each once")
+        epochs = sorted({s.epoch for _, s, _, _ in served})
+        check(epochs[0] == 0 and epochs[-1] == eng_c.epoch,
+              f"(c) served epochs {epochs} do not span the run")
+        by_epoch = {}
+        for q, snap, small, crc in served:
+            by_epoch.setdefault(snap.epoch, (snap, []))[1].append(
+                (q, small, crc))
+        for ep, (snap, rows) in by_epoch.items():
+            for b0 in range(0, len(rows), 16):
+                blk = rows[b0:b0 + 16]
+                qb = np.stack([r[0] for r in blk])
+                if qb.shape[0] < 16:
+                    qb = np.concatenate([qb, np.repeat(
+                        qb[-1:], 16 - qb.shape[0], 0)])
+                want = eng_c.query_batch_at(snap, torch.from_numpy(qb).to(
+                    dev), K, C)
+                want = type(want)(*(x.cpu() for x in want))
+                for i, (q, small, crc) in enumerate(blk):
+                    wsmall = tuple(getattr(want, f)[i] for f in
+                                   want._fields if f not in ("r_lo", "r_up"))
+                    wcrc = tuple(zlib.crc32(np.ascontiguousarray(
+                        getattr(want, f)[i].numpy())) for f in ("r_lo",
+                                                                "r_up"))
+                    check(all(torch.equal(a, b) for a, b in
+                              zip(small, wsmall)) and crc == wcrc,
+                          f"(c) a result of epoch {ep} differs from its "
+                          "snapshot's synchronous query_batch")
+        reg = obs.get_default()
+        st = mb.stats()
+        print(f"  (c) MaintenanceLoop + IndexPersister on elastic:fused, "
+              f"{SERVE_THREADS} client threads through MicroBatcher "
+              f"(depth 2) for {wall:.2f} s while {LOOP_INSERT} items were "
+              f"inserted in "
+              f"4 batches (insert_items {', '.join(f'{s * 1e3:.2f}' for s in insert_s)}"
+              f" ms): {len(served)} results over epochs {epochs}, each "
+              f"bitwise its snapshot's query_batch; one rebuild "
+              f"({rec.reason}): maintenance_build_ms "
+              f"{reg.histogram('maintenance_build_ms').sum:.3f}, "
+              f"maintenance_swap_ms {reg.histogram('maintenance_swap_ms').sum:.3f}"
+              f" (its spill: {pc.last_spill.bytes} bytes); programs built "
+              f"{programs1 - programs0} (all in ticks after a mutation, one "
+              f"per new key), elastic_trace_count {programs0} -> "
+              f"{programs1}; p50 {st.p50_ms:.3f} ms, p99 {st.p99_ms:.3f} ms")
+        report["c"] = dict(build_ms=rec.build_s * 1e3,
+                           swap_ms=rec.swap_s * 1e3, results=len(served),
+                           p50=st.p50_ms, p99=st.p99_ms)
+        report["checks"].append("c")
+        pc.close()
+        del eng_c, served, by_epoch, mb, ml
+        shutil.rmtree(dc, ignore_errors=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) the auditor's numbers on phase 4's queries
+    eng_a = ReverseKRanksEngine(users, rt, cfg, backend="elastic:fused",
+                                items=items, positions=pos, weights=w)
+    reg_a = obs.MetricsRegistry()
+    aud = QualityAuditor(eng_a, fraction=1.0, seed=0, registry=reg_a)
+    mb = MicroBatcher(eng_a, max_batch=16, max_wait_ms=2.0, auditor=aud)
+    qh4 = qs.cpu().numpy()
+    sync()
+    ops.reset_launch_counts()
+    try:
+        futs = [mb.submit(q, K, C) for q in qh4]
+        for f in futs:
+            f.result(timeout=300)
+        mb.flush()
+        t0 = time.perf_counter()
+        check(aud.flush(timeout=600), "(d) the auditor did not drain")
+        flush_s = time.perf_counter() - t0
+    finally:
+        mb.close()
+        aud.close()
+    sync()
+    k3 = ops.LAUNCHES["k3_exact_ranks"]
+    accs, ratios = grades
+    mean = lambda xs: sum(xs) / len(xs)
+    scored = reg_a.counter("audit_scored_total").value
+    check(scored == len(qh4) and (k3 == scored or not on_card),
+          f"(d) {scored} scored with {k3} K3 launches, expected "
+          f"{len(qh4)} and one each")
+    check(math.isclose(aud.overall_ratio, mean(ratios), rel_tol=1e-12)
+          and math.isclose(aud.accuracy, mean(accs), rel_tol=1e-12),
+          f"(d) the auditor's overall ratio {aud.overall_ratio!r} / "
+          f"accuracy {aud.accuracy!r} differ from phase 4's "
+          f"{mean(ratios)!r} / {mean(accs)!r}")
+    print(f"  (d) QualityAuditor at fraction 1.0 behind MicroBatcher on "
+          f"phase 4's {len(qh4)} queries: audit_scored_total {scored:.0f}, "
+          f"{k3} K3 launches (one a sample, on the auditor's stream); "
+          f"overall ratio {aud.overall_ratio!r}, accuracy "
+          f"{aud.accuracy!r}, equal to phase 4's grades (rtol 1e-12); "
+          f"bound width {aud.bound_width:.3f}; the flush after the last "
+          f"result {flush_s:.3f} s")
+    report["checks"].append("d")
+
+    # (e) the auditor's cost under phase 6's burst
+    def burst(depth, audit, priority):
+        reg_e = obs.MetricsRegistry()
+        aud_e = (QualityAuditor(eng_a, fraction=AUDIT_FRACTION, seed=depth,
+                                registry=reg_e) if audit else None)
+        futs = [None] * n_serve
+        # the baseline switches the scheduler's private constant for the
+        # stream this MicroBatcher makes, then puts it back
+        fixed = scheduler._DISPATCH_STREAM_PRIORITY
+        scheduler._DISPATCH_STREAM_PRIORITY = priority
+        try:
+            mb_e = MicroBatcher(eng_a, max_batch=16, max_wait_ms=2.0,
+                                pipeline_depth=depth, auditor=aud_e)
+        finally:
+            scheduler._DISPATCH_STREAM_PRIORITY = fixed
+        sync()
+        ops.reset_launch_counts()
+        try:
+            def client(t):
+                for i in range(t, n_serve, SERVE_THREADS):
+                    futs[i] = mb_e.submit(qh[i], K, C)
+            t0 = time.perf_counter()
+            ths = [threading.Thread(target=client, args=(t,))
+                   for t in range(SERVE_THREADS)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(timeout=300)
+            held = [f.result(timeout=300) for f in futs]
+            wall = time.perf_counter() - t0
+            backlog = reg_e.gauge("audit_backlog").value if audit else 0.0
+            t1 = time.perf_counter()
+            if audit:
+                check(aud_e.flush(timeout=600),
+                      "(e) the auditor did not drain within 600 s")
+            flush_s = time.perf_counter() - t1
+        finally:
+            mb_e.close()
+            if aud_e is not None:
+                aud_e.close()
+        sync()
+        k3 = ops.LAUNCHES["k3_exact_ranks"]
+        scored = reg_e.counter("audit_scored_total").value if audit else 0
+        check(k3 == scored or not on_card,
+              f"(e) {k3} K3 launches for {scored} scored")
+        st = mb_e.stats()
+        del held
+        return dict(qps=n_serve / wall, p50=st.p50_ms, p99=st.p99_ms,
+                    backlog=backlog, flush_s=flush_s, scored=scored, k3=k3)
+
+    qids = (torch.arange(n_serve, device=dev) * 7 + 3) % m
+    qh = items[qids].cpu().numpy()
+    cost = {}
+    for depth in (1, 2):
+        for label, audit, prio in (("none", False, -1),
+                                   ("audit, priority 0", True, 0),
+                                   ("audit", True, -1)):
+            r = cost[(depth, label)] = burst(depth, audit, prio)
+            print(f"  (e) depth {depth}, {label}: {r['qps']:.1f} queries/s, "
+                  f"p50 {r['p50']:.3f} ms, p99 {r['p99']:.3f} ms; auditor "
+                  f"backlog at the burst's end {r['backlog']:.0f}, flush "
+                  f"{r['flush_s']:.3f} s, {r['scored']:.0f} scored, K3 "
+                  f"launches in the window {r['k3']}")
+    report["e"] = cost
+    report["checks"].append("e")
+    del eng_a
+
+    # (f) the pruned path's telemetry on phase 4c (iii)'s engine
+    users_m, rt_m, qs_hot, skip_iii, fallback_iii = pruned
+    eng_f = ReverseKRanksEngine(users_m, rt_m, cfg,
+                                backend=PrunedBackend("fused"))
+    eng_f.query_batch(qs_hot, K, C)
+    reg = obs.get_default()
+    label = {"fallback": fallback_iii or "none"}
+    before = reg.counter("prune_batches_total", labels=label).value
+    was = trace.is_enabled()
+    trace.enable()
+    trace.clear()
+    reps = 10
+    try:
+        for _ in range(reps):
+            eng_f.query_batch(qs_hot, K, C)
+            sync()
+        spans = {name: [s.duration_ms for s in trace.spans(name)]
+                 for name in ("prune.query", "prune.phase_a",
+                              "prune.phase_b")}
+    finally:
+        if not was:
+            trace.disable()
+        trace.clear()
+    st = eng_f._backend.stats
+    gauge = reg.gauge("prune_skip_rate").value
+    check(gauge == st.skip_rate and st.skip_rate == skip_iii
+          and st.fallback == fallback_iii,
+          f"(f) prune_skip_rate {gauge} vs stats.skip_rate {st.skip_rate} "
+          f"(phase 4c (iii): {skip_iii}), fallback {st.fallback!r}")
+    check(reg.counter("prune_batches_total", labels=label).value - before
+          == reps and len(spans["prune.query"]) == reps
+          and len(spans["prune.phase_a"]) == reps
+          and len(spans["prune.phase_b"]) == (0 if st.fallback else reps),
+          "(f) a pruned batch published no counter or not its spans")
+    q_ms = time_ms(torch, lambda: eng_f.query_batch(qs_hot, K, C),
+                   reps=reps) if timing else float("nan")
+    mean_of = lambda xs: sum(xs) / len(xs) if xs else float("nan")
+    print(f"  (f) pruned:fused on 4c (iii): prune_skip_rate gauge {gauge!r}"
+          f" = stats.skip_rate; span means (host clock, {reps} calls): "
+          f"prune.query {mean_of(spans['prune.query']):.3f} ms, "
+          f"prune.phase_a {mean_of(spans['prune.phase_a']):.3f} ms (its "
+          f"host sync included), prune.phase_b "
+          f"{mean_of(spans['prune.phase_b']):.3f} ms; query_batch "
+          f"{q_ms:.3f} ms by CUDA events")
+    report["f"] = dict(spans={k: mean_of(v) for k, v in spans.items()},
+                       query_ms=q_ms)
+    report["checks"].append("f")
+    report["checks"].sort()
+    return report
+
+
 # ------------------------------------------------------------ main path
 def digests_of(torch, exact_mod, rt_mod, ReverseKRanksEngine,
                RankTableConfig, synthetic_embeddings, ops, query_mod,
@@ -2772,6 +3403,7 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
           f"item {QUERY_ITEM}: indices {res1.indices.tolist()}")
     for a, r in zip(accs, ratios):
         check(0.0 <= a <= 1.0 and r >= 1.0 and r == r, "metrics out of range")
+    grades4 = (list(accs), list(ratios))      # phase 7 (d) audits these
     # steady state, CUDA events around 10 calls each: the whole query and
     # its selection (steps 2-3) alone on the same bounds
     qb_steady = time_ms(torch, lambda: eng.query_batch(qs, K, C), reps=10)
@@ -3070,6 +3702,10 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
           f"select_topk alone on the compacted arrays {t_s:.3f} ms")
     del fused_m, bounds
 
+    # phase 7 (f) reads the pruned telemetry on this engine's state; the
+    # churn of 4d publishes new tensors and leaves these as they are
+    held_iii = (eng_m.users, eng_m.rank_table, qs_hot, st.skip_rate,
+                st.fallback)
     # 4d. the mutable index: its own data and engines, then phase 4c's
     # reordered engines and the mid_mixture engine, all churned
     print(f"phase: mutable index, n={N} m={M} d={D} tau={TAU}, B={B} and "
@@ -3406,6 +4042,20 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
                 ms, pms, need + 4 + 12 * N * nb, flops,
                 src + ("user_scores.cu" if spec == "f32"
                        else "user_scores_quant.cu"))
+    del serve_report, engines
+
+    # 7. durability, the maintenance loop and the auditor
+    print(f"phase: durability, maintenance and the auditor, n={N} m={M} "
+          f"d={D} tau={TAU}, churn {CHURN}")
+    t0 = time.perf_counter()
+    report7 = durability_checks(dev, users=users, items=items, cfg=cfg,
+                                rt=eng.rank_table, pos=pos, w=w, qs=qs,
+                                grades=grades4, pruned=held_iii,
+                                avoid=netflix_qids(torch, dev))
+    print(f"  phase 7: checks {''.join(report7['checks'])} passed, "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(report7["checks"] == list("abcdef"),
+          "phase 7 did not run every check")
     return out
 
 

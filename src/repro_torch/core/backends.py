@@ -53,6 +53,7 @@ from repro_torch.core import rank_table as rt_mod
 from repro_torch.core.types import DeltaCorrection, QueryResult, \
     RankTable, RankTableConfig, stored_rows, take_user_rows
 from repro_torch.kernels import ops
+from repro_torch.obs import trace
 
 
 def host_block(qs, *, pinned: bool) -> torch.Tensor:
@@ -316,6 +317,14 @@ class PrunedBackend(QueryBackend):
         return summary
 
     def query_batch(self, rt, users, qs, *, k, c, delta=None):
+        with trace.span("prune.query", batch=qs.shape[0], k=k):
+            res = self._query_impl(rt, users, qs, k=k, c=c, delta=delta)
+        # this batch's accounting (skip rate, kept fraction, fallback) as
+        # gauges: the live half of the bench's prune columns
+        self.stats.publish()
+        return res
+
+    def _query_impl(self, rt, users, qs, *, k, c, delta=None):
         n = users.shape[0]
         bs = self.block_size
         nb = -(-n // bs)
@@ -328,17 +337,20 @@ class PrunedBackend(QueryBackend):
                 fallback="delta-guard")
             return self.inner.query_batch(rt, users, qs, k=k, c=c,
                                           delta=delta)
-        summary = self.summary_for(rt, users)
-        if delta is None:
-            keep, _ = pruning.phase_a(summary, qs, k=k)
-        else:
-            keep, _ = pruning.phase_a(summary, qs, k=k, n_add=delta.n_add,
-                                      n_del=delta.n_del,
-                                      user_live=delta.user_live,
-                                      block_size=bs)
-        keep_np = keep.cpu().numpy()                        # host sync
-        union = np.flatnonzero(keep_np.any(axis=0))
-        per_q = float(keep_np.mean())
+        with trace.span("prune.phase_a", n_blocks=nb) as sp_a:
+            summary = self.summary_for(rt, users)
+            if delta is None:
+                keep, _ = pruning.phase_a(summary, qs, k=k)
+            else:
+                keep, _ = pruning.phase_a(summary, qs, k=k,
+                                          n_add=delta.n_add,
+                                          n_del=delta.n_del,
+                                          user_live=delta.user_live,
+                                          block_size=bs)
+            keep_np = keep.cpu().numpy()                    # host sync
+            union = np.flatnonzero(keep_np.any(axis=0))
+            per_q = float(keep_np.mean())
+            sp_a.set(kept_union=int(union.size))
         self.stats = pruning.PruneStats(
             n_blocks=nb, kept_union=int(union.size), kept_per_query=per_q)
         # degrade rung ≥ 1 lifts the union cap to 1.0: the fallback is
@@ -349,6 +361,17 @@ class PrunedBackend(QueryBackend):
             self.stats.fallback = "dense"
             return self.inner.query_batch(rt, users, qs, k=k, c=c,
                                           delta=delta)
+        with trace.span("prune.phase_b", kept=int(union.size),
+                        n_blocks=nb):
+            return self._phase_b(rt, users, qs, keep, union, k=k, c=c,
+                                 delta=delta)
+
+    def _phase_b(self, rt, users, qs, keep, union, *, k, c, delta):
+        """Step 1 over the kept tiles, then the selection (module doc of
+        `core.pruning`)."""
+        n = users.shape[0]
+        bs = self.block_size
+        nb = -(-n // bs)
         ids_np = pruning.bucket_blocks(union, n_blocks=nb,
                                        min_blocks=-(-k // bs))
         ids = torch.from_numpy(ids_np).to(qs.device)

@@ -48,11 +48,20 @@ MicroBatcher` drives it. Both entries count `engine_queries_total` (and
 `engine.delta_correct` span) in `repro_torch.obs`, and `rebuild` carries
 the chaos site `index.rebuild` (`repro_torch.serve.faults`).
 
-Not ported here: `restore`, `attach_persister` and the WAL (durability).
+Durability (`repro_torch.index.persist`). `attach_persister` spills the
+current snapshot as a baseline and WAL-logs every later mutation; each
+`rebuild` spills its new epoch inside the locked swap and rotates the
+WAL; `ReverseKRanksEngine.restore(path)` loads the newest valid spill
+and replays its WAL through the mutation API:
+
+    eng.attach_persister(IndexPersister(path))
+    ...                                    # mutations, rebuilds
+    eng2 = ReverseKRanksEngine.restore(path, backend="fused")
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import time
 from typing import Optional, Sequence, Union
@@ -150,6 +159,7 @@ class ReverseKRanksEngine:
         self._next_item_id = m_base
         self._corr_cost: dict = {}              # measured delta-cost cache
         self._generator_state = generator_state
+        self._persister = None                  # attach_persister wires it
 
     @classmethod
     def build(cls, users: torch.Tensor, items: torch.Tensor,
@@ -204,6 +214,62 @@ class ReverseKRanksEngine:
         return cls(users=users, rank_table=rt, config=cfg, backend=bk,
                    user_remap=remap, items=items, positions=positions,
                    weights=weights, generator_state=state)
+
+    @classmethod
+    def restore(cls, path, *, backend: Union[str, QueryBackend] = "dense",
+                device=None) -> "ReverseKRanksEngine":
+        """Recover an engine from a persistence directory on `device`
+        (the CUDA card unless the caller passes device='cpu').
+
+        Loads the newest checksum-valid spill (`repro_torch.index.
+        persist`), rebuilds its snapshot (what is not stored re-derives
+        deterministically from the base items, positions and weights),
+        then replays the spill's WAL through the mutation API. On the
+        device type that spilled, the recovered engine is bitwise the
+        engine that was running at the durable point (epochs, rank-table
+        bytes, bounds), and its later `rebuild()` draws what that
+        engine's would. A spill from another device type is not promised
+        to be bitwise: the correction and the packed users are recomputed
+        by that device's products (cuBLAS on the card), and the
+        generator's state is not carried across, so `rebuild` then needs
+        positions= and weights=. Raises `PersistError` when no durable
+        point can be trusted (rebuild from the master copy instead).
+
+        Durability is not re-armed: call `attach_persister(
+        IndexPersister(path))` on the result to spill a fresh baseline.
+        """
+        from repro_torch.index import persist as persist_mod
+        state = persist_mod.load_latest(path, device=device)
+        snap = state.snapshot
+        eng = cls(snap.users, snap.rank_table, state.config,
+                  backend=backend)
+        # graft the durable lineage over the constructor's epoch-0 state
+        eng._snapshots = SnapshotManager(snap)
+        eng._next_item_id = state.next_item_id
+        eng._generator_state = state.generator_state
+        for rec in state.wal:
+            persist_mod.replay_record(eng, rec)
+        return eng
+
+    def attach_persister(self, persister) -> None:
+        """Arm crash safety: spill the current snapshot as the baseline
+        durable point, then WAL-log every later mutation; each rebuild
+        spills its new epoch and rotates the WAL. Needs the base item
+        set (engines from `build(...)`)."""
+        with self._lock:
+            snap = self._require_base("attach_persister")
+            persister.spill(snap, next_item_id=self._next_item_id,
+                            generator_state=self._generator_state)
+            self._persister = persister
+
+    def _wal_append(self, op: str, **arrays) -> None:
+        """Record one mutation (the caller holds the mutation lock, after
+        its `_publish`: the publish is the op's effect, the WAL makes it
+        durable). None-valued arrays are left out."""
+        if self._persister is None:
+            return
+        self._persister.append(op, {k: v for k, v in arrays.items()
+                                    if v is not None})
 
     @property
     def backend_name(self) -> str:
@@ -340,15 +406,19 @@ class ReverseKRanksEngine:
                             dtype=np.int64)
             self._next_item_id += vectors.shape[0]
             self._publish(snap, delta=snap.delta.with_inserted(ids, vectors))
+            self._wal_append("insert_items", vectors=vectors, ids=ids)
         return ids
 
     def delete_items(self, ids: Sequence[int]) -> None:
         """Delete items by stable id: base items are tombstoned, inserted
         ones leave the buffer. KeyError for unknown or deleted ids."""
+        ids = np.asarray(ids.cpu() if isinstance(ids, torch.Tensor)
+                         else list(ids), np.int64)
         with self._lock:
             snap = self._require_base("delete_items")
             self._publish(snap,
                           delta=snap.delta.with_deleted(ids, snap.base))
+            self._wal_append("delete_items", ids=ids)
 
     def upsert_users(self, vectors, indices: Optional[Sequence[int]] = None
                      ) -> np.ndarray:
@@ -389,6 +459,8 @@ class ReverseKRanksEngine:
                 delta=snap.delta.with_users(
                     touched=tuple(int(i) for i in idx),
                     n_users=users_new.shape[0]))
+            self._wal_append("upsert_users", vectors=vectors,
+                             indices=None if indices is None else idx)
         return idx
 
     def delete_users(self, indices: Sequence[int]) -> None:
@@ -402,6 +474,7 @@ class ReverseKRanksEngine:
                 raise IndexError(f"user indices out of range [0, {n})")
             self._publish(snap, delta=snap.delta.with_users(
                 dead=tuple(int(i) for i in idx)))
+            self._wal_append("delete_users", indices=idx)
 
     def _user_rows(self, users: torch.Tensor, rows: torch.Tensor,
                    base: delta_mod.BaseIndex):
@@ -493,6 +566,13 @@ class ReverseKRanksEngine:
         the backend cannot query the smaller n. `reorder_clusters`:
         afterwards, reorder rows by k-means (`pruning.kmeans_layout`) and
         compose that map too.
+
+        With a persister attached, the new epoch is spilled inside the
+        locked swap, right after it is published, so no mutation falls
+        between the durable points; `swap_s` includes the spill. A spill
+        that fails with OSError is logged and disarms the WAL, leaving
+        durability at the previous spill and the records logged before
+        the rebuild until a spill succeeds; the rebuild stands.
         """
         if not self._rebuild_lock.acquire(blocking=False):
             return None
@@ -523,6 +603,16 @@ class ReverseKRanksEngine:
                 swapped, n_dropped, reordered = self._swap(
                     snap, now, rt_new, base_new, live_ids,
                     compact_dead_above, reorder_clusters)
+                if self._persister is not None:
+                    try:
+                        self._persister.spill(
+                            swapped, next_item_id=self._next_item_id,
+                            generator_state=self._generator_state)
+                    except OSError:
+                        logging.getLogger(__name__).exception(
+                            "rebuild spill failed; the WAL is disarmed "
+                            "and durability stays at the previous spill "
+                            "until a spill succeeds")
             return RebuildRecord(
                 epoch_before=snap.epoch, epoch_after=swapped.epoch,
                 reason=reason, build_s=build_s,

@@ -38,7 +38,10 @@ by the padded delta widths and leaves deleted users out of R̂'s live
 counts, and phase B folds the delta correction into the kept rows
 (`pruned_query_batch_delta`, `delta_finish_compacted`).
 
-Not ported here: `PruneStats.publish`, which waits for the telemetry.
+`PruneStats.publish` mirrors a batch's accounting into the metrics
+registry (`prune_skip_rate`, `prune_kept_per_query`,
+`prune_batches_total{fallback=...}`); `PrunedBackend` calls it after
+every batch.
 """
 from __future__ import annotations
 
@@ -139,6 +142,22 @@ class PruneStats:
     @property
     def skip_rate(self) -> float:
         return 1.0 - self.union_fraction
+
+    def publish(self, registry=None) -> None:
+        """Mirror this batch's accounting into metrics gauges (the live
+        half of the bench's §6.3 prune columns): `prune_skip_rate`,
+        `prune_kept_per_query`, and per-reason fallback counters."""
+        from repro_torch.obs import registry as obs
+        reg = registry if registry is not None else obs.get_default()
+        reg.gauge("prune_skip_rate",
+                  "1 - kept-union fraction of the last pruned batch"
+                  ).set(self.skip_rate)
+        reg.gauge("prune_kept_per_query",
+                  "mean per-query kept-block fraction, last batch"
+                  ).set(self.kept_per_query)
+        reg.counter("prune_batches_total",
+                    "pruned query_batch calls",
+                    labels={"fallback": self.fallback or "none"}).inc()
 
 
 def _per_block(x: torch.Tensor, block_size: int, op: str) -> torch.Tensor:

@@ -106,6 +106,11 @@ held result keeps only its own row alive. On the CPU the tick runs
 synchronously on the dispatch thread and the completion stage only
 copies the rows out and resolves.
 
+The dispatch stream runs at CUDA priority −1 (`_DISPATCH_STREAM_PRIORITY`),
+above the default 0: a `QualityAuditor`'s exact oracle runs on a stream of
+its own at priority 0, and the block scheduler then starts a tick's blocks
+before the oracle's waiting ones.
+
 `submit` keeps queries as HOST numpy (no per-request copy), and tick
 assembly stacks and edge-pads in numpy. When the engine's backend
 composes a `CachingBackend`, the LRU lookup is folded into the ADMISSION
@@ -207,6 +212,10 @@ class DeadlineExceeded(RuntimeError):
 # Reject-reason label values on serve_rejected_total{reason=...}; the
 # catalog is closed so dashboards can enumerate it.
 REJECT_REASONS = ("queue_full", "deadline", "shutdown", "degraded")
+
+# CUDA priority of the dispatch stream (lower is higher; 0 is the default
+# streams'): above the auditor's oracle stream, so replays go first.
+_DISPATCH_STREAM_PRIORITY = -1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -441,7 +450,8 @@ class MicroBatcher:
                 self._admission_cache = find_cache(bk)
         # On the card the dispatch stage runs on a stream of its own
         self._device = _engine_device(engine)
-        self._stream = (torch.cuda.Stream(self._device)
+        self._stream = (torch.cuda.Stream(self._device,
+                                          priority=_DISPATCH_STREAM_PRIORITY)
                         if self._device.type == "cuda" else None)
         # free in-flight slots of pinned host tensors (card only); a tick
         # holds one from its dispatch until its rows are copied out

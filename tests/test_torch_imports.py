@@ -1,7 +1,9 @@
 """The port imports neither JAX (nor `ml_dtypes`, JAX's bf16 type) nor
 the reference package, also while it serves through `MicroBatcher` on
-the elastic and cached backends, and its entry points never fall back to
-the CPU quietly."""
+the elastic and cached backends, spills and restores at every spec
+(`repro_torch.index.persist`), rebuilds in its maintenance loop and
+audits served queries (`repro_torch.obs.audit`), and its entry points
+never fall back to the CPU quietly."""
 import ast
 import os
 import subprocess
@@ -17,7 +19,7 @@ PORT = SRC / "repro_torch"
 # Runs in a fresh interpreter: blocking modules by import hooks in the
 # pytest process would break every JAX test that shares the worker.
 _NO_JAX = r"""
-import importlib, importlib.abc, pkgutil, sys
+import importlib, importlib.abc, pkgutil, sys, time
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -70,6 +72,43 @@ for backend in ("elastic:fused", "cached:elastic:dense"):
             assert torch.equal(f.result(timeout=60).indices, want.indices[i])
     finally:
         mb.close()
+import tempfile
+from repro_torch.index import IndexPersister, MaintenanceLoop, \
+    MaintenancePolicy
+from repro_torch.obs import QualityAuditor
+users, items = synthetic_embeddings(0, 64, 48, 8, device="cpu")
+for spec in ("f32", "bf16", "int8"):
+    eng = ReverseKRanksEngine.build(users, items[:40], RankTableConfig(
+        tau=8, omega=2, s=4, storage_dtype=spec), 0, backend="fused",
+        device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        eng.attach_persister(IndexPersister(d))
+        ml = MaintenanceLoop(eng, policy=MaintenancePolicy(
+            max_delta_ratio=0.1), poll_ms=5.0)
+        try:
+            eng.insert_items(items[40:])
+            eng.delete_users([1])
+            for _ in range(6000):
+                if ml.rebuilds:
+                    break
+                ml.wake()
+                time.sleep(0.01)
+        finally:
+            ml.close()
+        assert ml.rebuilds, "the maintenance loop never rebuilt"
+        got = ReverseKRanksEngine.restore(d, backend="fused", device="cpu")
+        assert got.epoch == eng.epoch
+        assert torch.equal(got.rank_table.table, eng.rank_table.table)
+    aud = QualityAuditor(eng, fraction=1.0)
+    mb = MicroBatcher(eng, max_batch=4, max_wait_ms=1.0, auditor=aud)
+    try:
+        for f in [mb.submit(items[i].numpy(), 5, 2.0) for i in range(4)]:
+            f.result(timeout=60)
+        mb.flush()
+        assert aud.flush(timeout=60) and aud.scored >= 4
+    finally:
+        mb.close()
+        aud.close()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
 assert not bad, bad

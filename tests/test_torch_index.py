@@ -1006,6 +1006,108 @@ def test_snapshots_hold_under_concurrent_mutation():
             assert torch.equal(getattr(res, f), getattr(again, f)), f
 
 
+# --------------------------------------------------- quality end to end
+# phase 4d's churn at Netflix size (chip_smoke.CHURN), as fractions of
+# m = 17,770 items and n = 480,189 users
+CHURN_FRACTIONS = dict(insert=96 / 17770, delete=64 / 17770,
+                       upsert=32 / 480189, append=32 / 480189,
+                       dead=48 / 480189)
+
+
+def mutated_ratios(n, m, d, tau, nq=16, k=10, c=2.0):
+    """Phase 4d's churn proportions (at least one of each) applied to one
+    index in each package, the port's started from the reference's table,
+    positions and weights; both mutated selections (and both after a
+    rebuild, the port fed the reference's draw over the live items)
+    graded by ONE oracle over the live users and items. Returns {(stage,
+    package): (overall ratio, accuracy)} and the selections."""
+    from repro_torch.core import exact, metrics
+    from repro_torch.data.pipeline import synthetic_embeddings
+    cnt = {key: max(1, round(f * (m if key in ("insert", "delete") else n)))
+           for key, f in CHURN_FRACTIONS.items()}
+    U, I = (x.numpy() for x in synthetic_embeddings(
+        0, n + cnt["upsert"] + cnt["append"], m + cnt["insert"], d,
+        device="cpu"))
+    users, items = U[:n], I[:m]
+    rcfg, pcfg = (RefConfig(tau=tau, omega=10, s=64),
+                  RankTableConfig(tau=tau, omega=10, s=64))
+    key = jax.random.PRNGKey(1)
+    ref = RefEngine.build(jnp.asarray(users), jnp.asarray(items), rcfg, key)
+    pos, w = R.stratified_sample_indices(key, m, rcfg)
+    st = convert.from_reference(ref.rank_table, users, items, pos, w,
+                                device="cpu")
+    port = ReverseKRanksEngine(st.users, st.rank_table, pcfg,
+                               items=st.items, positions=st.positions,
+                               weights=st.weights)
+    rng = np.random.default_rng(3)
+    qids = rng.permutation(m)[:nq]
+    dels = sorted(rng.choice(np.setdiff1d(np.arange(m), qids),
+                             cnt["delete"], replace=False).tolist())
+    perm = rng.permutation(n)
+    up_idx = sorted(perm[:cnt["upsert"]].tolist())
+    dead = sorted(perm[cnt["upsert"]:cnt["upsert"] + cnt["dead"]].tolist())
+    up = U[n:n + cnt["upsert"]]
+    app = U[n + cnt["upsert"]:]
+    for e, arr in ((ref, jnp.asarray), (port, torch.from_numpy)):
+        e.insert_items(arr(I[m:]))
+        e.delete_items(dels)
+        e.upsert_users(arr(up), indices=up_idx)
+        e.upsert_users(arr(app))
+        e.delete_users(dead)
+    snap = port.current_snapshot()
+    live = snap.delta.user_live
+    np.testing.assert_array_equal(np.asarray(ref.current_snapshot().users),
+                                  snap.users.numpy())
+    live_items = port.live_items()
+    np.testing.assert_array_equal(np.asarray(ref.live_items()),
+                                  live_items.numpy())
+    row_of = np.cumsum(live) - 1
+    users_live = snap.users[torch.from_numpy(live)]
+    qs = items[qids]
+    truth = [exact.exact_ranks(users_live, live_items,
+                               torch.from_numpy(q)).numpy() for q in qs]
+
+    def grade(indices):
+        out = []
+        for b, tr in enumerate(truth):
+            ex = np.argsort(tr, kind="stable")[:k]
+            got = row_of[np.asarray(indices[b])]
+            out.append((metrics.overall_ratio(got, ex, tr),
+                        metrics.accuracy(got, ex, tr, c)))
+        return tuple(np.mean(out, axis=0))
+
+    out, sel = {}, {}
+    for stage in ("mutated", "rebuilt"):
+        if stage == "rebuilt":
+            ref.rebuild()
+            p2, w2 = R.stratified_sample_indices(key, live_items.shape[0],
+                                                 rcfg)
+            port.rebuild(positions=torch.from_numpy(np.array(p2)),
+                         weights=torch.from_numpy(np.array(w2)))
+        for name, idx in (
+                ("reference", np.asarray(ref.query_batch(
+                    jnp.asarray(qs), k, c).indices)),
+                ("port", port.query_batch(torch.from_numpy(qs), k,
+                                          c).indices.numpy())):
+            sel[(stage, name)] = idx
+            out[(stage, name)] = grade(idx)
+    return out, sel
+
+
+def test_mutated_overall_ratio_is_the_references():
+    """The port adds no fault to the mutated index's quality at this
+    size: with phase 4d's churn proportions, both packages select the
+    same users on the mutated index and after a rebuild, so one oracle
+    grades them to the same §5 overall ratio and accuracy."""
+    out, sel = mutated_ratios(n=2048, m=2000, d=32, tau=64)
+    for stage in ("mutated", "rebuilt"):
+        np.testing.assert_array_equal(sel[(stage, "port")],
+                                      sel[(stage, "reference")])
+        assert out[(stage, "port")] == out[(stage, "reference")]
+        ratio, acc = out[(stage, "port")]
+        assert ratio >= 1.0 and 0.0 <= acc <= 1.0
+
+
 # ------------------------------------------------------------- the card
 @pytest.mark.cuda
 def test_mutable_index_checks_on_card():
@@ -1019,3 +1121,13 @@ def test_mutable_index_checks_on_card():
         torch.device("cuda"), n=6000, m=700, d=24, tau=32, n_insert=20,
         n_delete=12, n_upsert=5, n_append=5, n_dead=7, timing=False)
     assert report["checks"] == list("abcdefg")
+
+
+if __name__ == "__main__":
+    # the quality comparison at a given size:
+    #   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_index.py \
+    #       N M D TAU
+    import sys
+    res, _ = mutated_ratios(*(int(a) for a in sys.argv[1:5]))
+    for (stage, name), (ratio, acc) in sorted(res.items()):
+        print(f"{stage} {name}: overall ratio {ratio!r}, accuracy {acc!r}")

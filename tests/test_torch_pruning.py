@@ -19,6 +19,9 @@ so that drift in one stage cannot hide in the next:
   end to end `pruned:dense` and `pruned:fused` select bitwise the indices
             of their own inner full scan at every spec and B ∈ {1, 16},
             and the reference's `pruned:dense` indices on integer inputs.
+  telemetry `PruneStats.publish` sets the reference's gauges and counter,
+            and the `prune.query` / `prune.phase_a` / `prune.phase_b`
+            spans carry the reference's names, nesting and attributes.
 
 Also the two faults this slice closes: ‖q‖₁ is bitwise the same for a
 query at any B, and no kernel wrapper refuses a d that the reference
@@ -707,6 +710,88 @@ def test_summary_cache_is_per_generation(problem):
     for i in range(BK.PrunedBackend._SUMMARY_CACHE):
         bk.summary_for(full.rank_table, full.users.clone())
     assert bk.summary_for(full.rank_table, full.users) is not a
+
+
+# ------------------------------------------------------------ telemetry
+@pytest.mark.parametrize("stats", [
+    dict(n_blocks=32, kept_union=5, kept_per_query=0.09375),
+    dict(n_blocks=32, kept_union=20, kept_per_query=0.5, fallback="dense"),
+    dict(n_blocks=7, kept_union=7, kept_per_query=1.0,
+         fallback="delta-guard"),
+    dict()])
+def test_prune_stats_publish_is_the_references(stats):
+    """`PruneStats.publish` sets the reference's gauges and counter, by
+    name, help, labels and value: the registries' texts are equal."""
+    from repro.obs import registry as ref_obs
+    from repro_torch.obs import registry as obs
+    got, want = obs.MetricsRegistry(), ref_obs.MetricsRegistry()
+    for _ in range(2):
+        P.PruneStats(**stats).publish(got)
+        RP.PruneStats(**stats).publish(want)
+    assert got.to_prometheus_text() == want.to_prometheus_text()
+    assert got.gauge("prune_skip_rate").value == P.PruneStats(
+        **stats).skip_rate
+    label = stats.get("fallback") or "none"
+    assert got.counter("prune_batches_total",
+                       labels={"fallback": label}).value == 2
+
+
+@pytest.mark.parametrize("union_frac", [1.0, 0.0])
+def test_pruned_spans_and_gauges_are_the_references(union_frac):
+    """A pruned:dense batch on integer inputs, pruned (cap 1.0) and
+    falling back to the full scan (cap 0): the port's `prune.query`,
+    `prune.phase_a` and `prune.phase_b` spans carry the reference's names,
+    nesting, attribute keys and values (no phase B on the fallback), and
+    every batch publishes the reference's gauges and counter, the skip
+    rate the backend's own `stats.skip_rate`."""
+    from repro.obs import registry as ref_obs
+    from repro.obs import trace as ref_trace
+    from repro_torch.obs import registry as obs
+    from repro_torch.obs import trace
+    users, items = clustered(5, integer=True)
+    rt, ru, prt, pu = _state(users, items, "f32")
+    ref_eng = RefEngine(users=ru, rank_table=rt,
+                        config=RefConfig(tau=16, omega=4, s=8),
+                        backend="pruned:dense")
+    ref_eng._backend.block_size = BS
+    ref_eng._backend.max_union_frac = union_frac
+    eng = _pruned(pu, prt, RankTableConfig(tau=16, omega=4, s=8), "dense")
+    eng._backend.max_union_frac = union_frac
+    qs = (items[np.arange(4) * 29 % M] + 0.5).astype(np.float32)
+    regs = (obs.MetricsRegistry(), ref_obs.MetricsRegistry())
+    olds = (obs.set_default(regs[0]), ref_obs.set_default(regs[1]))
+    spans = {}
+    try:
+        for name, tr, run in (
+                ("port", trace, lambda: eng.query_batch(
+                    torch.from_numpy(qs), K, 1.0)),
+                ("reference", ref_trace, lambda: ref_eng.query_batch(
+                    jnp.asarray(qs), k=K, c=1.0))):
+            tr.disable()
+            tr.clear()
+            tr.enable()
+            try:
+                run()
+                run()
+            finally:
+                tr.disable()
+            spans[name] = [(r.name, r.parent, r.depth, r.attrs)
+                           for r in tr.spans() if r.name.startswith(
+                               "prune.")]
+            tr.clear()
+    finally:
+        obs.set_default(olds[0])
+        ref_obs.set_default(olds[1])
+    names = [s[0] for s in spans["port"]]
+    want_names = ["prune.phase_a", "prune.phase_b", "prune.query"] * 2 \
+        if union_frac else ["prune.phase_a", "prune.query"] * 2
+    assert names == want_names
+    assert spans["port"] == spans["reference"]
+    st = eng._backend.stats
+    assert (st.fallback == "dense") == (union_frac == 0.0)
+    assert st.skip_rate > 0.0       # both cases skip blocks in phase A
+    assert regs[0].gauge("prune_skip_rate").value == st.skip_rate
+    assert regs[0].to_prometheus_text() == regs[1].to_prometheus_text()
 
 
 # ------------------------------------------------------------ K6 and K7
