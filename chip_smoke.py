@@ -160,12 +160,29 @@ Phases, each fatal on failure (exit code 1, no result line):
      time, K3 launches = samples scored; (f) phase 4c (iii)'s engine:
      the prune_skip_rate gauge equals stats.skip_rate, and the prune.*
      span times beside the query's.
+  8. row-sharded execution and the QSRP baseline (`sharded_checks`), P
+     shards on the one card (a mesh that repeats it): (a) the sharded
+     query at n over 3 shards on phase 4's f32 table and phase 4b's int8
+     one, B = 16 and item 42, bitwise select_topk over the shards' own
+     bounds, R_k equal to the single-device dense path's and at least
+     k - 1 shared indices a query, one step of each collective a call,
+     and build_index at n and m taking the dense fallback; (b)
+     build_sharded on the first N_CUT = 479,232 users over 2 shards at
+     f32 and int8 against build_rank_table on the same rows, K2 launched
+     twice against once; (c) pruned:sharded on phase 4c (iii)'s
+     mid_mixture draw cut to N_CUT, bitwise the unpruned sharded query,
+     and the align fallback at n; (d) ring_exact_ranks on the cut users,
+     bitwise phase 4's exact ranks, 4 K3 launches a query; (e) QSRP at n
+     (levels 1,000): build time, peak memory and bytes, then every query
+     at c = 1 and 2, ranks exact, accuracy 1, n_refined not growing
+     with c. Prints `digest sharded`.
 
 `--digests SRC` runs only phase 4's data, its f32 build, K3 grading,
 phase 4c's reordered f32 engine and the storage tier's tables with the
 package under SRC (another tree's `src`, built in that tree), and prints
 the K2, K1 and K3 digests, the torch.profiler breakdown of the f32 fused
-query and query_batch, the K6 digests, the 16 K4/K5/K7 digests of
+query and query_batch, the sharded digest of phase 8 (n/a for a package
+without the sharded backend), the K6 digests, the 16 K4/K5/K7 digests of
 phase 4b and phase 4d's delta digest (n/a for a package without the
 mutable index), for comparison with this tree's in one call.
 
@@ -190,6 +207,7 @@ name and power limit, and the result object.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import subprocess
@@ -2743,6 +2761,354 @@ def durability_checks(dev, *, users, items, cfg, rt, pos, w, qs, grades,
     return report
 
 
+# ------------------------------------------------- row-sharded execution
+# Phase 8's n': the first 479,232 users, 117 blocks of 4,096 rows, so it
+# splits into whole 256-row blocks for every P up to 16 (the build needs
+# n % P == 0, pruned:sharded n % (P·256) == 0, and N = 3·67·2389 meets
+# neither for P = 2); m = 17,770 stays whole (2·5·1777: even).
+N_CUT = 479_232
+P_QUERY, P_BUILD = 3, 2            # shards of (a), and of (b)-(d)
+QSRP_LEVELS = 2 * TAU              # the summary of the rank table's size
+QSRP_BLOCK = 4096                  # users a chunk of the QSRP build
+
+
+def sharded_digest(torch, res) -> str:
+    """SHA-256 of a sharded query_batch's indices and candidate bounds."""
+    import hashlib
+    h = hashlib.sha256()
+    for x in (res.indices, res.r_lo, res.r_up):
+        h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def sharded_checks(dev, *, users, items, cfg, pos, w, qs, rt, int8, truth,
+                   exact_idx, mid, qs_hot, q1=None, n_cut=N_CUT,
+                   p_query=P_QUERY, p_build=P_BUILD, levels=QSRP_LEVELS,
+                   qsrp_block=QSRP_BLOCK):
+    """Phase 8: row-sharded execution and the QSRP baseline, P shards on
+    one device (`distributed.flat_mesh((dev,) * P)`), each check fatal.
+
+    `users`, `items`, `cfg`, `pos`, `w`, `qs`, `rt` are phase 4's (its
+    f32 table), `int8` phase 4b's (stored users, rank table), `truth` /
+    `exact_idx` phase 4's oracle (K3 ranks and reverse_k_ranks of each
+    query), `mid` phase 4c (iii)'s mid_mixture (users, items) draw and
+    `qs_hot` its hot-cluster batch; `q1` the B = 1 query (qs[0]).
+
+      (a) the sharded query at n over `p_query` shards, at f32 and int8,
+          B = len(qs) and 1: indices, est_rank, R_k and guaranteed
+          bitwise `select_topk` over the concatenated shards' own
+          bounds; against the single-device dense path R↓_k, R↑_k equal
+          and at least k - 1 shared indices a query (the bound cells
+          that differ are printed); one step of each cross-shard
+          collective a call; `build_index` on n and m takes the dense
+          fallback, bitwise phase 4's table;
+      (b) `build_sharded` on the first `n_cut` users over `p_build`
+          shards at f32 and int8 against `build_rank_table` on the same
+          rows: rows with bitwise thresholds have bitwise table rows,
+          every row within rtol/atol 1e-5, the int8 pack bitwise
+          `pack_table` of the sharded f32 rows; K2 launched P times
+          against once, each in a window of its own;
+      (c) pruned:sharded (forced, max_union_frac=1.0) on the mid_mixture
+          draw cut to `n_cut`, reordered, built sharded: indices and R_k
+          bitwise the unpruned sharded query on the same table; at n the
+          `align` fallback (over `p_query` shards: n is odd);
+      (d) `ring_exact_ranks` on the cut users for every query, bitwise
+          phase 4's exact ranks of those users; p_build² K3 launches a
+          query;
+      (e) QSRP at n: `build_qsrp_index(levels)` (time, peak memory above
+          what was held, bytes); `qsrp_query` for every query at c = 1
+          and 2: each returned rank bitwise the exact rank, accuracy 1
+          against phase 4's oracle with the reference's one-rank tie
+          slack, n_refined not growing with c.
+
+    On the CPU (a rehearsal) the launch counts and peak memory are not
+    read. Returns {"checks", "digest"}."""
+    import numpy as np
+    import torch
+    from repro_torch.core import distributed as D
+    from repro_torch.core import qsrp as QS
+    from repro_torch.core import query as query_mod
+    from repro_torch.core import rank_table as rt_mod
+    from repro_torch.core.backends import PrunedBackend, ShardedBackend
+    from repro_torch.core.engine import ReverseKRanksEngine
+    from repro_torch.core.types import RankTable, RankTableConfig
+    from repro_torch.kernels import ops
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    n, m = users.shape[0], items.shape[0]
+    nq = qs.shape[0]
+    q1 = qs[0] if q1 is None else q1
+    mesh_q = D.flat_mesh((dev,) * p_query)
+    mesh_b = D.flat_mesh((dev,) * p_build)
+    checks = []
+
+    def clock(fn):
+        """(fn(), host ms), synchronized with the device."""
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def spec_cfg(spec):
+        return cfg if spec == "f32" else RankTableConfig(
+            tau=cfg.tau, omega=cfg.omega, s=cfg.s, storage_dtype=spec)
+
+    # (a) the sharded query at n over p_query shards of the device
+    digest = None
+    for spec, rt_s in (("f32", rt), ("int8", int8[1])):
+        eng = ReverseKRanksEngine(users, rt_s, spec_cfg(spec),
+                                  backend="sharded", mesh=mesh_q)
+        u = eng.current_snapshot().query_users()
+        if spec == "int8":
+            check(all(torch.equal(a, b) for a, b in zip(u, int8[0])
+                      if a is not None),
+                  "(a) int8: the engine's stored users differ from phase "
+                  "4b's")
+        D.reset_collective_counts()
+        res, t_b = clock(lambda: eng.query_batch(qs, K, C))
+        coll = dict(D.COLLECTIVES)
+        res1, t_1 = clock(lambda: eng.query(q1, K, C))
+        label = f"(a) {spec} sharded P={p_query}"
+        check(all(v == 1 for v in coll.values()),
+              f"{label}: collectives {coll}, expected one step each")
+        check(res.r_lo.shape == (nq, K * p_query)
+              and res.indices.shape == (nq, K),
+              f"{label}: result shapes {tuple(res.r_lo.shape)}, "
+              f"{tuple(res.indices.shape)}")
+        bounds = D.shard_bounds(mesh_q, rt_s, u, qs)
+        merged = query_mod.select_topk(*bounds, k=K, c=C, m_items=m)
+        bounds1 = D.shard_bounds(mesh_q, rt_s, u, q1[None, :])
+        merged1 = query_mod.squeeze_result(query_mod.select_topk(
+            *bounds1, k=K, c=C, m_items=m))
+        for f in ("indices", "est_rank", "R_lo_k", "R_up_k", "guaranteed"):
+            check(torch.equal(getattr(res, f), getattr(merged, f)),
+                  f"{label}: {f} differs from select_topk over the "
+                  "concatenated shard bounds")
+            check(torch.equal(getattr(res1, f), getattr(merged1, f)),
+                  f"{label}: query(q) {f} differs from select_topk over "
+                  "the shard bounds")
+        dense_b = query_mod.bound_ranks_batch(rt_s, u, qs)
+        res_d = query_mod.select_topk(*dense_b, k=K, c=C, m_items=m)
+        cells = sum(int((a != b).sum()) for a, b in zip(bounds, dense_b))
+        check(torch.equal(res.R_lo_k, res_d.R_lo_k)
+              and torch.equal(res.R_up_k, res_d.R_up_k),
+              f"{label}: R_lo_k / R_up_k differ from the single-device "
+              "dense path")
+        shared = [len(set(res.indices[b].tolist())
+                      & set(res_d.indices[b].tolist())) for b in range(nq)]
+        check(min(shared) >= K - 1, f"{label}: shared indices with the "
+              f"dense path {shared}, need >= {K - 1} a query")
+        print(f"  {label}: query_batch(B={nq}) {t_b:.3f} ms, query "
+              f"{t_1:.3f} ms (host, synced, first calls); collectives "
+              f"{coll}; indices, est_rank, R_k, guaranteed bitwise "
+              f"select_topk over the shards' own bounds; against the "
+              f"dense path R_k equal, shared indices min {min(shared)} of "
+              f"{K}, {cells} of {3 * nq * n} bound cells differ")
+        if cuda:
+            steady = time_ms(torch, lambda: eng.query_batch(qs, K, C),
+                             reps=10)
+            steady_1 = time_ms(torch, lambda: eng.query(q1, K, C), reps=10)
+            dense_t = time_ms(torch, lambda: query_mod.query_batch(
+                rt_s, u, qs, K, C), reps=10)
+            print(f"  {label}: steady query_batch {steady:.3f} ms, query "
+                  f"{steady_1:.3f} ms (CUDA events, 10 calls); the "
+                  f"single-device dense query_batch {dense_t:.3f} ms")
+            print(f"  {label}: profile of query_batch: " + device_breakdown(
+                torch, lambda: eng.query_batch(qs, K, C)))
+        if spec == "f32":
+            digest = sharded_digest(torch, res)
+        del eng, u, res, res1, bounds, merged, dense_b, res_d
+    bk = ShardedBackend(mesh_q)
+    rt_fb, t_fb = clock(lambda: bk.build_index(users, items, cfg,
+                                               positions=pos, weights=w))
+    check(bk.build_fallback == "shape", f"(a) build_index at n={n}, m={m}, "
+          f"P={p_query}: fallback {bk.build_fallback!r}, expected 'shape'")
+    check(torch.equal(rt_fb.table, rt.table)
+          and torch.equal(rt_fb.thresholds, rt.thresholds),
+          "(a) the dense fallback build differs from phase 4's table")
+    print(f"  (a) build_index at n={n}, m={m} over {p_query} shards: m % "
+          f"{p_query} = {m % p_query}, the dense fallback "
+          f"(build_fallback={bk.build_fallback!r}) in {t_fb:.1f} ms, "
+          "bitwise phase 4's table")
+    del rt_fb, bk
+    checks.append("a")
+
+    # (b) the sharded build on the first n_cut users over p_build shards
+    u_c = users[:n_cut]
+    same = None
+    for spec in ("f32", "int8"):
+        cfg_s = spec_cfg(spec)
+        ops.reset_launch_counts()
+        rt_sh, t_sh = clock(lambda: D.build_sharded(u_c, items, cfg_s, pos,
+                                                    w, mesh_b))
+        k2_sh = ops.LAUNCHES["k2_table_build"]
+        ops.reset_launch_counts()
+        rt_1, t_one = clock(lambda: rt_mod.build_rank_table(
+            u_c, items, cfg_s, positions=pos, weights=w))
+        k2_one = ops.LAUNCHES["k2_table_build"]
+        label = f"(b) {spec} build_sharded n'={n_cut} P={p_build}"
+        if cuda:
+            check(k2_one == 1 and k2_sh == p_build * k2_one,
+                  f"{label}: K2 launches {k2_sh} sharded, {k2_one} single")
+        if spec == "f32":
+            same_thr = (rt_sh.thresholds == rt_1.thresholds).all(dim=1)
+            same_tab = (rt_sh.table == rt_1.table).all(dim=1)
+            check(bool((same_tab | ~same_thr).all()),
+                  f"{label}: a row with bitwise thresholds has a table row "
+                  "that differs (K2 is row-local)")
+            check(torch.allclose(rt_sh.thresholds, rt_1.thresholds,
+                                 rtol=1e-5, atol=1e-5)
+                  and torch.allclose(rt_sh.table, rt_1.table, rtol=1e-5,
+                                     atol=1e-5),
+                  f"{label}: rows beyond rtol/atol 1e-5 of the single "
+                  "build")
+            same = same_thr & same_tab
+            f32_sh = rt_sh
+            detail = (f"{int((~same_thr).sum())} rows' thresholds and "
+                      f"{int((~same_tab).sum())} rows' table differ from "
+                      "the single build, all within 1e-5; rows with "
+                      "bitwise thresholds have bitwise table rows")
+        else:
+            packed = cfg_s.storage.pack_table(f32_sh.thresholds,
+                                              f32_sh.table, m=m)
+            for f in RankTable._fields:
+                a, b = getattr(rt_sh, f), getattr(packed, f)
+                check(a == b if f == "m" else torch.equal(a, b),
+                      f"{label}: {f} is not pack_table of the sharded f32 "
+                      "rows")
+                if f != "m":
+                    eq = (a == getattr(rt_1, f)).all(dim=1)
+                    check(bool((eq | ~same).all()),
+                          f"{label}: {f} differs from the single build on "
+                          "a row whose f32 rows are bitwise equal")
+            detail = ("pack_table of the sharded f32 rows bitwise; rows "
+                      "whose f32 rows match bitwise the single build's")
+        print(f"  {label}: {t_sh:.1f} ms sharded ({k2_sh} K2 launches) "
+              f"against {t_one:.1f} ms single ({k2_one}); {detail}")
+        del rt_1
+        if spec == "int8":
+            del rt_sh, f32_sh, packed
+    checks.append("b")
+
+    # (c) pruned:sharded on the mid_mixture draw cut to n_cut
+    mu, mi = mid
+    gm = torch.Generator(device=dev)
+    gm.manual_seed(6)
+    eng_p, t_bp = clock(lambda: ReverseKRanksEngine.build(
+        mu[:n_cut], mi, cfg, gm, backend=PrunedBackend(
+            "sharded", mesh=mesh_b, max_union_frac=1.0),
+        device=dev, cluster_reorder=True))
+    check(eng_p._backend.inner.build_fallback == "",
+          f"(c) the pruned engine's build fell back "
+          f"({eng_p._backend.inner.build_fallback!r})")
+    res_p, t_p = clock(lambda: eng_p.query_batch(qs_hot, K, C))
+    st = eng_p._backend.stats
+    check(st.fallback == "", f"(c) pruned:sharded fell back ({st.fallback})")
+    unp = ReverseKRanksEngine(eng_p.users, eng_p.rank_table, cfg,
+                              backend="sharded", mesh=mesh_b)
+    res_u = unp.query_batch(qs_hot, K, C)
+    for f in ("indices", "R_lo_k", "R_up_k"):
+        check(torch.equal(getattr(res_p, f), getattr(res_u, f)),
+              f"(c) pruned:sharded {f} differs from the unpruned sharded "
+              "query on the same table")
+    line = (f"  (c) pruned:sharded n'={n_cut} P={p_build} (mid_mixture, "
+            f"reordered, built sharded in {t_bp:.1f} ms): kept union "
+            f"{st.kept_union} of {st.n_blocks} blocks, skip rate "
+            f"{st.skip_rate:.4f}; indices, R_k bitwise the unpruned sharded "
+            f"query; first query_batch {t_p:.3f} ms")
+    if cuda:
+        t_sp = time_ms(torch, lambda: eng_p.query_batch(qs_hot, K, C),
+                       reps=10)
+        t_su = time_ms(torch, lambda: unp.query_batch(qs_hot, K, C), reps=10)
+        line += f"; steady {t_sp:.3f} ms, unpruned {t_su:.3f} ms"
+    print(line)
+    del eng_p, unp, res_p, res_u
+    eng_a = ReverseKRanksEngine(users, rt, cfg, backend=PrunedBackend(
+        "sharded", mesh=mesh_q))
+    res_a = eng_a.query_batch(qs, K, C)
+    st = eng_a._backend.stats
+    check(st.fallback == "align", f"(c) at n={n} over {p_query} shards the "
+          f"pruned path did not take the align fallback ({st.fallback!r})")
+    same_result(torch, res_a, ReverseKRanksEngine(
+        users, rt, cfg, backend="sharded", mesh=mesh_q).query_batch(
+            qs, K, C), "(c) the align fallback")
+    print(f"  (c) at n={n} over {p_query} shards (n % {p_query * 256} = "
+          f"{n % (p_query * 256)}): stats.fallback={st.fallback!r}, the "
+          "result bitwise the unpruned sharded query's")
+    del eng_a, res_a
+    checks.append("c")
+
+    # (d) the ring exact ranks on the cut users
+    ops.reset_launch_counts()
+    rings, t_r = clock(lambda: [D.ring_exact_ranks(u_c, items, qs[b], mesh_b)
+                                for b in range(nq)])
+    k3 = ops.LAUNCHES["k3_exact_ranks"]
+    if cuda:
+        check(k3 == p_build ** 2 * nq, f"(d) K3 launches {k3}, expected "
+              f"{p_build ** 2} a query")
+    for b in range(nq):
+        check(rings[b].dtype == torch.float32 and torch.equal(
+            rings[b], truth[b][:n_cut].to(torch.float32)),
+            f"(d) ring_exact_ranks of query {b} differs from the exact "
+            "ranks")
+    print(f"  (d) ring_exact_ranks n'={n_cut} P={p_build}: {nq} queries in "
+          f"{t_r:.1f} ms ({k3} K3 launches), bitwise phase 4's exact "
+          "ranks of those users")
+    del rings
+    checks.append("d")
+
+    # (e) the QSRP baseline at n
+    if cuda:
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+    idx, t_q = clock(lambda: QS.build_qsrp_index(users, items, levels=levels,
+                                                 block=qsrp_block))
+    nbytes = (idx.quantile_scores.numel() * 4
+              + idx.ranks_at.numel() * idx.ranks_at.element_size())
+    peak = (f"{(torch.cuda.max_memory_allocated(dev) - held) / 1e9:.3f} GB "
+            f"above the {held / 1e9:.3f} GB held") if cuda else "n/a"
+    print(f"  (e) build_qsrp_index(levels={levels}, block={qsrp_block}) at "
+          f"n={n}, m={m}: {t_q / 1e3:.3f} s, {nbytes} bytes, peak {peak}")
+    refined = {}
+    for c in (1.0, 2.0):
+        ops.reset_launch_counts()
+        times = []
+        refined[c] = []
+        for b in range(nq):
+            (got, ranks, nref), t = clock(lambda: QS.qsrp_query(
+                idx, users, items, qs[b], K, c))
+            times.append(t)
+            refined[c].append(nref)
+            tr = truth[b].cpu().numpy()
+            check(np.array_equal(np.asarray(ranks, np.float64),
+                                 tr[got].astype(np.float64)),
+                  f"(e) c={c} query {b}: QSRP's ranks differ from the exact "
+                  "ranks")
+            ours = np.sort(tr[got]).astype(np.float64)
+            ex = np.sort(tr[exact_idx[b].cpu().numpy()]).astype(np.float64)
+            check(len(got) == K and bool(np.all(ours <= c * ex + 1)),
+                  f"(e) c={c} query {b}: accuracy below 1 ({ours} against "
+                  f"{ex})")
+        print(f"  (e) qsrp_query c={c}: {nq} queries, accuracy 1, ranks "
+              f"exact; online {sum(times) / nq:.3f} ms a query (host, "
+              f"synced; first {times[0]:.3f}, min {min(times):.3f}); "
+              f"refined users {refined[c]}; "
+              f"{ops.LAUNCHES['k3_exact_ranks']} K3 launches")
+    check(all(a >= b for a, b in zip(refined[1.0], refined[2.0])),
+          f"(e) n_refined grows with c: {refined}")
+    if cuda:
+        worst = int(np.argmax(refined[1.0]))
+        print(f"  (e) profile of qsrp_query c=1.0 on query {worst} "
+              f"({refined[1.0][worst]} users refined): " + device_breakdown(
+                  torch, lambda: QS.qsrp_query(idx, users, items, qs[worst],
+                                               K, 1.0)))
+    del idx
+    checks.append("e")
+    return {"checks": checks, "digest": digest}
+
+
 # ------------------------------------------------------------ main path
 def digests_of(torch, exact_mod, rt_mod, ReverseKRanksEngine,
                RankTableConfig, synthetic_embeddings, ops, query_mod,
@@ -2766,6 +3132,16 @@ def digests_of(torch, exact_mod, rt_mod, ReverseKRanksEngine,
         torch, lambda: eng.query(items[QUERY_ITEM], K, C)))
     print(f"  f32 profile of fused query_batch(B={B}): " + device_breakdown(
         torch, lambda: eng.query_batch(qs, K, C)))
+    if importlib.util.find_spec("repro_torch.core.distributed") is not None:
+        sh = ReverseKRanksEngine(users, eng.rank_table, cfg,
+                                 backend="sharded",
+                                 mesh=(dev,) * P_QUERY)
+        print(f"  digest sharded (the f32 sharded query_batch, B={B}: "
+              f"indices and candidate bounds): "
+              f"{sharded_digest(torch, sh.query_batch(qs, K, C))}")
+        del sh
+    else:
+        print("  digest sharded: n/a (this package has no sharded backend)")
     del eng
     eng_r = reordered_build(ReverseKRanksEngine, PrunedBackend, users, items,
                             cfg, pos, w, dev)
@@ -4056,6 +4432,28 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
           f"{time.perf_counter() - t0:.1f} s")
     check(report7["checks"] == list("abcdef"),
           "phase 7 did not run every check")
+    del report7
+
+    # 8. row-sharded execution and the QSRP baseline
+    print(f"phase: row-sharded execution and QSRP, n={N} m={M} d={D} "
+          f"tau={TAU}, P={P_QUERY} (query) and {P_BUILD} (build, pruned, "
+          f"ring at n'={N_CUT}) shards of one card, B={B}, k={K}")
+    t0 = time.perf_counter()
+    mu_, mi_, _ = mid_mixture(5, N, M, D, device=dev)
+    report8 = sharded_checks(dev, users=users, items=items, cfg=cfg, pos=pos,
+                             w=w, qs=qs, rt=eng.rank_table,
+                             int8=(tier["int8"]["eng"].stored_users,
+                                   tier["int8"]["eng"].rank_table),
+                             truth=truth, exact_idx=exact_idx,
+                             mid=(mu_, mi_), qs_hot=held_iii[2],
+                             q1=items[QUERY_ITEM])
+    del mu_, mi_
+    print(f"  digest sharded (the f32 sharded query_batch, B={B}: indices "
+          f"and candidate bounds): {report8['digest']}")
+    print(f"  phase 8: checks {''.join(report8['checks'])} passed, "
+          f"{time.perf_counter() - t0:.1f} s; {nvidia_smi_line()}")
+    check(report8["checks"] == list("abcde"),
+          "phase 8 did not run every check")
     return out
 
 

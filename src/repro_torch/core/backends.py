@@ -1,12 +1,16 @@
 """Pluggable query-execution backends.
 
-Counterpart of `repro/core/backends.py`, with two registered backends:
+Counterpart of `repro/core/backends.py`, with three registered backends:
 
-  "dense" — plain PyTorch step 1 (`core.query`): one (n, d)×(d, B)
-            product plus one pass over the table per batch;
-  "fused" — step 1 in a kernel (`kernels.ops.bound_ranks_batched_stored`:
-            K1 on an f32 table, K4 on bf16, K5 on int8) on CUDA
-            tensors; its plain version on CPU tensors.
+  "dense"   — plain PyTorch step 1 (`core.query`): one (n, d)×(d, B)
+              product plus one pass over the table per batch;
+  "fused"   — step 1 in a kernel (`kernels.ops.bound_ranks_batched_stored`:
+              K1 on an f32 table, K4 on bf16, K5 on int8) on CUDA
+              tensors; its plain version on CPU tensors;
+  "sharded" — row-sharded over a mesh of devices (`core.distributed`):
+              local step 1 per shard, then the tree merge, which gathers
+              (B, k·P) candidates; its results carry candidate-set
+              bounds of shape (B, k·P), not (B, n).
 
 `users` is the raw (n, d) matrix at f32 storage and `StoredUsers` at
 bf16 and int8.
@@ -26,7 +30,10 @@ without the caller importing it first.
 
 `bound_ranks` takes a (B, d) block and returns (B, n) bounds; `select`
 realizes §4.3 steps 2-3; `query_batch` composes the two. Wrapper specs
-`"<prefix>:<inner>"` resolve through `register_wrapper`. The serving
+`"<prefix>:<inner>"` resolve through `register_wrapper`. Every backend
+takes `mesh=` (a device list, `distributed.flat_mesh`), which only
+"sharded" uses and wrappers pass inward; `check_users_shape(n)` raises
+before a mutation grows the users to an n the backend cannot query. The serving
 entry `dispatch_device` takes a host block, stages it on the device in
 one copy and returns device tensors without a host sync; `degrade(level)`
 is the degrade ladder's hook (`serve.degrade`).
@@ -35,8 +42,8 @@ On a mutated index `query_batch(..., delta=DeltaCorrection)` folds the
 delta buffer in between step 1 and the selection, through the one
 shared `rank_table.apply_delta_corrections`, so the backends cannot
 drift apart: dense in `query.query_batch_delta`, fused (and any backend
-with full (B, n) bounds) in `_delta_query`, the pruned wrapper in phase
-B on the kept rows.
+with full (B, n) bounds) in `_delta_query`, sharded on each shard's rows
+before its top-k, the pruned wrapper in phase B on the kept rows.
 """
 from __future__ import annotations
 
@@ -47,11 +54,12 @@ from typing import Callable, Dict, Optional, Type
 import numpy as np
 import torch
 
+from repro_torch.core import distributed
 from repro_torch.core import pruning
 from repro_torch.core import query as query_mod
 from repro_torch.core import rank_table as rt_mod
 from repro_torch.core.types import DeltaCorrection, QueryResult, \
-    RankTable, RankTableConfig, stored_rows, take_user_rows
+    RankTable, RankTableConfig, StoredUsers, stored_rows, take_user_rows
 from repro_torch.kernels import ops
 from repro_torch.obs import trace
 
@@ -81,10 +89,14 @@ def stage_block(qs, device: torch.device) -> torch.Tensor:
 
 
 class QueryBackend:
-    """Base class / protocol for batched query execution."""
+    """Base class / protocol for batched query execution. `mesh` is taken
+    by every backend for a uniform constructor; only "sharded" uses it."""
 
     name: str = "abstract"
     _degrade_level: int = 0
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
 
     def degrade(self, level: int) -> None:
         """Degrade-ladder hook (`serve.degrade`): rung `level` holds until
@@ -111,6 +123,11 @@ class QueryBackend:
         """Algorithm 1 on this backend's substrate."""
         return rt_mod.build_rank_table(users, items, cfg, generator,
                                        positions=positions, weights=weights)
+
+    def check_users_shape(self, n: int) -> None:
+        """Raise ValueError if this backend cannot query n users. The
+        engine calls it before an append publishes, and before a
+        compacting rebuild drops rows (which it then skips)."""
 
     def _delta_query(self, rt: RankTable, users, qs: torch.Tensor, *,
                      k: int, c: float, delta: DeltaCorrection
@@ -168,8 +185,8 @@ def register_backend(name: str):
 
 
 def register_wrapper(prefix: str):
-    """Register `factory(inner_name) -> QueryBackend` under `prefix`,
-    making `"<prefix>:<inner>"` a resolvable backend spec."""
+    """Register `factory(inner_name, *, mesh=None) -> QueryBackend` under
+    `prefix`, making `"<prefix>:<inner>"` a resolvable backend spec."""
     def deco(factory):
         _WRAPPERS[prefix] = factory
         return factory
@@ -180,10 +197,15 @@ def available_backends() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def get_backend(spec) -> QueryBackend:
+def get_backend(spec, *, mesh=None) -> QueryBackend:
     """Resolve a registered name, a `"<wrapper>:<inner>"` spec, or an
-    already-built instance; anything else raises ValueError."""
+    already-built instance; anything else raises ValueError. `mesh`
+    reaches the backends a spec names (an instance keeps its own)."""
     if isinstance(spec, QueryBackend):
+        if mesh is not None:
+            raise ValueError(
+                "mesh= only applies when the backend is given by NAME; "
+                "construct the instance with its mesh instead")
         return spec
     if isinstance(spec, str) and ":" in spec:
         prefix, _, inner = spec.partition(":")
@@ -194,13 +216,13 @@ def get_backend(spec) -> QueryBackend:
         if factory is None:
             raise ValueError(f"unknown backend wrapper {prefix!r} in "
                              f"{spec!r}; registered: {sorted(_WRAPPERS)}")
-        return factory(inner)
+        return factory(inner, mesh=mesh)
     try:
         cls = _REGISTRY[spec]
     except (KeyError, TypeError):
         raise ValueError(f"unknown query backend {spec!r}; available: "
                          f"{available_backends()}") from None
-    obj = cls()
+    obj = cls(mesh=mesh)
     obj.name = spec
     return obj
 
@@ -237,6 +259,90 @@ class FusedBackend(QueryBackend):
         return ops.bound_ranks_batched_stored(users, qs.contiguous(), rt)
 
 
+@register_backend("sharded")
+class ShardedBackend(QueryBackend):
+    """Row-sharded execution over a mesh with the tree merge
+    (`core.distributed`).
+
+    `query_batch` gathers only (B, k·P) candidates, so its QueryResult
+    carries candidate-set bounds of shape (B, k·P); on a mutated index
+    the correction runs on each shard's rows before its top-k. Built
+    query functions are cached by (k, c, n, delta widths, spec, stored
+    users), as the reference keys its compiled ones. `bound_ranks` gives
+    the dense (B, n) bounds, for parity checks only.
+
+    `build_index` builds through `distributed.build_sharded`, for
+    `Engine.build` and for every rebuild, and takes the dense build for
+    threshold_mode="exact" and where n or m is not a multiple of P
+    (churn drifts the live m off it); `build_fallback` says which ran
+    ("" sharded, else "exact" or "shape").
+
+    With mesh=None the mesh is resolved at first use from the users'
+    device (`distributed.flat_mesh(device=...)`: every CUDA device, or
+    the CPU)."""
+
+    def __init__(self, mesh=None):
+        super().__init__(
+            mesh=None if mesh is None else distributed.flat_mesh(mesh))
+        self._fns: dict = {}
+        self.build_fallback = ""
+
+    def mesh_for(self, device) -> tuple:
+        """The mesh, resolved from `device` if none was given."""
+        if self.mesh is None:
+            self.mesh = distributed.flat_mesh(device=device)
+        return self.mesh
+
+    def bound_ranks(self, rt, users, qs):
+        return query_mod.bound_ranks_batch(rt, users, qs)
+
+    def build_index(self, users, items, cfg, generator=None, *,
+                    positions=None, weights=None):
+        P = len(self.mesh_for(users.device))
+        if cfg.threshold_mode == "exact" or users.shape[0] % P \
+                or items.shape[0] % P:
+            # the exact range needs every user against the full item set;
+            # an n or m off the mesh multiple cannot split evenly (a
+            # rebuild would fail on every retry): build dense, which
+            # queries fine here as long as n itself splits
+            self.build_fallback = ("exact" if cfg.threshold_mode == "exact"
+                                   else "shape")
+            return super().build_index(users, items, cfg, generator,
+                                       positions=positions, weights=weights)
+        if positions is None:
+            positions, weights = rt_mod.stratified_sample_indices(
+                items.shape[0], cfg, generator, device=users.device)
+        elif weights is None:
+            raise ValueError("positions= needs weights= as well")
+        self.build_fallback = ""
+        return distributed.build_sharded(users, items, cfg, positions,
+                                         weights, self.mesh)
+
+    def check_users_shape(self, n):
+        # an unresolved mesh would be every CUDA device, or the CPU
+        P = (len(self.mesh) if self.mesh is not None
+             else torch.cuda.device_count() if torch.cuda.is_available()
+             else 1)
+        if n % P:
+            raise ValueError(
+                f"sharded backend row-shards {n} users over {P} devices; "
+                "appends must keep n divisible by the mesh size (pad the "
+                "append batch or rebuild on a resized mesh)")
+
+    def query_batch(self, rt, users, qs, *, k, c, delta=None):
+        mesh = self.mesh_for(stored_rows(users).device)
+        n = users.shape[0]
+        shape = None if delta is None else (delta.n_add, delta.n_del)
+        key = (k, float(c), n, shape, rt.spec_kind,
+               isinstance(users, StoredUsers))
+        fn = self._fns.get(key)
+        if fn is None:
+            fn = distributed.make_batch_query_fn(
+                mesh, k=k, n=n, c=float(c), with_delta=delta is not None)
+            self._fns[key] = fn
+        return fn(rt, users, qs, delta)
+
+
 @register_backend("pruned")
 class PrunedBackend(QueryBackend):
     """Two-phase block-pruned execution around an inner backend.
@@ -251,6 +357,10 @@ class PrunedBackend(QueryBackend):
       pruned:fused   K6 (f32) or K7 (bf16, int8) over the kept tiles on
                      CUDA tensors, their plain versions on CPU tensors
                      (`ops.bound_ranks_batched_pruned_stored`);
+      pruned:sharded each shard gathers its own kept tiles before the
+                     unchanged tree merge
+                     (`distributed.make_pruned_batch_query_fn`), with
+                     candidate-set bounds (B, k·P);
       other inners   the inner's `bound_ranks` on the gathered rows.
 
     On a mutated index (`delta=`) phase A widens its envelopes by the
@@ -266,20 +376,25 @@ class PrunedBackend(QueryBackend):
     inner backend runs the full scan instead (`stats.fallback =
     "dense"`); when the delta exceeds `pruning.DELTA_GUARD` of the base
     items, phase A is skipped and the inner runs the full scan
-    (`stats.fallback = "delta-guard"`). `use_cones=False` prunes on the
-    coordinate boxes alone.
+    (`stats.fallback = "delta-guard"`); on a sharded inner whose n does
+    not split into whole blocks per shard (n % (P·block_size)), the inner
+    runs unpruned (`stats.fallback = "align"`). `use_cones=False` prunes
+    on the coordinate boxes alone.
     """
 
     _SUMMARY_CACHE = 4          # index generations kept
 
-    def __init__(self, inner="dense", *, block_size: Optional[int] = None,
+    def __init__(self, inner="dense", *, mesh=None,
+                 block_size: Optional[int] = None,
                  max_union_frac: float = 0.5, use_cones: bool = True):
-        self.inner = get_backend(inner)
+        super().__init__(mesh=mesh)
+        self.inner = get_backend(inner, mesh=mesh)
         self.name = f"pruned:{self.inner.name}"
         self.block_size = int(block_size or pruning.DEFAULT_BLOCK)
         self.max_union_frac = float(max_union_frac)
         self.use_cones = bool(use_cones)
         self._summaries: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._sharded_fns: dict = {}
         self.stats = pruning.PruneStats()   # last query_batch's accounting
 
     def bound_ranks(self, rt, users, qs):
@@ -293,6 +408,9 @@ class PrunedBackend(QueryBackend):
                                     positions=positions, weights=weights)
         self.summary_for(rt, users)         # pre-warm this generation
         return rt
+
+    def check_users_shape(self, n):
+        return self.inner.check_users_shape(n)
 
     def degrade(self, level):
         """Rung ≥ 1 lifts `max_union_frac` to 1.0: a query that prunes
@@ -324,19 +442,29 @@ class PrunedBackend(QueryBackend):
         self.stats.publish()
         return res
 
+    def _full_scan(self, rt, users, qs, *, k, c, delta, why: str,
+                   n_blocks: int) -> QueryResult:
+        self.stats = pruning.PruneStats(
+            n_blocks=n_blocks, kept_union=n_blocks, kept_per_query=1.0,
+            fallback=why)
+        return self.inner.query_batch(rt, users, qs, k=k, c=c, delta=delta)
+
     def _query_impl(self, rt, users, qs, *, k, c, delta=None):
         n = users.shape[0]
         bs = self.block_size
         nb = -(-n // bs)
+        sharded = isinstance(self.inner, ShardedBackend)
+        if sharded and n % (len(self.inner.mesh_for(
+                stored_rows(users).device)) * bs):
+            # a tile must not straddle two shards: run the inner unpruned
+            return self._full_scan(rt, users, qs, k=k, c=c, delta=delta,
+                                   why="align", n_blocks=nb)
         if delta is not None and (delta.n_add + delta.n_del) / max(
                 rt.m, 1) > pruning.DELTA_GUARD:
             # the envelopes widened by the (padded) delta widths would
             # keep nearly every block: run the inner full scan
-            self.stats = pruning.PruneStats(
-                n_blocks=nb, kept_union=nb, kept_per_query=1.0,
-                fallback="delta-guard")
-            return self.inner.query_batch(rt, users, qs, k=k, c=c,
-                                          delta=delta)
+            return self._full_scan(rt, users, qs, k=k, c=c, delta=delta,
+                                   why="delta-guard", n_blocks=nb)
         with trace.span("prune.phase_a", n_blocks=nb) as sp_a:
             summary = self.summary_for(rt, users)
             if delta is None:
@@ -363,8 +491,42 @@ class PrunedBackend(QueryBackend):
                                           delta=delta)
         with trace.span("prune.phase_b", kept=int(union.size),
                         n_blocks=nb):
+            if sharded:
+                return self._sharded_query(rt, users, qs, keep, keep_np,
+                                           k=k, c=c, delta=delta)
             return self._phase_b(rt, users, qs, keep, union, k=k, c=c,
                                  delta=delta)
+
+    def _sharded_query(self, rt, users, qs, keep, keep_np, *, k, c, delta):
+        """Phase B on a sharded inner: each shard's kept local block ids,
+        padded to one bucketed width by repeating them (`valid` False on
+        the repeats), then the pruned tree merge."""
+        mesh = self.inner.mesh
+        P = len(mesh)
+        n = users.shape[0]
+        bs = self.block_size
+        nb_loc = keep_np.shape[1] // P
+        per_shard = keep_np.any(axis=0).reshape(P, nb_loc)
+        width = pruning.bucket_width(int(per_shard.sum(axis=1).max()),
+                                     n_blocks=nb_loc,
+                                     min_blocks=-(-k // bs))
+        ids = np.zeros((P, width), np.int64)
+        valid = np.zeros((P, width), bool)
+        for s in range(P):
+            kept = np.flatnonzero(per_shard[s])
+            if kept.size == 0:
+                continue                    # ids stay 0, valid stays False
+            ids[s] = np.tile(kept, -(-width // kept.size))[:width]
+            valid[s, :kept.size] = True
+        shape = None if delta is None else (delta.n_add, delta.n_del)
+        fkey = (k, float(c), n, width, shape)
+        fn = self._sharded_fns.get(fkey)
+        if fn is None:
+            fn = distributed.make_pruned_batch_query_fn(
+                mesh, k=k, n=n, c=float(c), block_size=bs,
+                with_delta=delta is not None)
+            self._sharded_fns[fkey] = fn
+        return fn(rt, users, qs, ids, valid, keep, delta)
 
     def _phase_b(self, rt, users, qs, keep, union, *, k, c, delta):
         """Step 1 over the kept tiles, then the selection (module doc of
@@ -402,6 +564,6 @@ class PrunedBackend(QueryBackend):
 
 
 @register_wrapper("pruned")
-def _make_pruned(inner: str) -> PrunedBackend:
+def _make_pruned(inner: str, *, mesh=None) -> PrunedBackend:
     """`get_backend("pruned:<inner>")` lands here."""
-    return PrunedBackend(inner)
+    return PrunedBackend(inner, mesh=mesh)

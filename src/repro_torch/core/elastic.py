@@ -404,8 +404,10 @@ class ElasticBackend(BK.QueryBackend):
 
     _BUCKETS = 2
 
-    def __init__(self, inner="dense", *, tile: Optional[int] = None):
-        self.inner = BK.get_backend(inner or "dense")
+    def __init__(self, inner="dense", *, tile: Optional[int] = None,
+                 mesh=None):
+        super().__init__(mesh=mesh)
+        self.inner = BK.get_backend(inner or "dense", mesh=mesh)
         self.name = f"elastic:{self.inner.name}"
         self.tile = int(tile) if tile else default_tile()
         if self.tile < 32 or self.tile % 32:
@@ -439,6 +441,9 @@ class ElasticBackend(BK.QueryBackend):
         """Ladder levels act on the wrapped backend."""
         super().degrade(level)
         self.inner.degrade(level)
+
+    def check_users_shape(self, n):
+        return self.inner.check_users_shape(n)
 
     def programs(self) -> list:
         """The programs built by this backend: on the card each reports
@@ -527,6 +532,6 @@ class ElasticBackend(BK.QueryBackend):
 
 
 @BK.register_wrapper("elastic")
-def _make_elastic(inner: str) -> ElasticBackend:
+def _make_elastic(inner: str, *, mesh=None) -> ElasticBackend:
     """`get_backend("elastic:<inner>")` lands here."""
-    return ElasticBackend(inner)
+    return ElasticBackend(inner, mesh=mesh)

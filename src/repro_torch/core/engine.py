@@ -1,11 +1,13 @@
 """ReverseKRanksEngine — the port's public API.
 
 Counterpart of `repro/core/engine.py`: Algorithm 1 (`build`) plus the
-batched §4.3 query on a backend chosen by name ("dense", "fused", or
-"pruned:<inner>"), at any storage spec. The f32 user matrix stays the
-system of record; queries scan its spec-space storage
-(`config.storage.pack_users`: None at f32, `StoredUsers` at bf16 and
-int8). `build(..., cluster_reorder=True)` reorders the user rows by
+batched §4.3 query on a backend chosen by name ("dense", "fused",
+"sharded", or a wrapper such as "pruned:<inner>"), at any storage spec.
+`build` and `restore` take `mesh=` (a device list, which may repeat a
+device) for the sharded backend, and keep it as `eng.mesh`. The f32
+user matrix stays the system of record; queries scan its spec-space
+storage (`config.storage.pack_users`: None at f32, `StoredUsers` at
+bf16 and int8). `build(..., cluster_reorder=True)` reorders the user rows by
 k-means before the build, so that the pruned backend's blocks are tight,
 and keeps the old→new row map as `user_remap`.
 
@@ -111,9 +113,13 @@ def _host(x) -> Optional[np.ndarray]:
 
 
 def _sync(t: torch.Tensor) -> None:
-    """Wait for the work that produces `t` (a no-op on the CPU)."""
+    """Wait for the work that produces `t`, queued on this thread's
+    current stream (a no-op on the CPU). Not a device-wide synchronize:
+    that would also wait on a stream that another thread is capturing
+    into a CUDA graph (an elastic program), which fails both the capture
+    and this call."""
     if t.is_cuda:
-        torch.cuda.synchronize(t.device)
+        torch.cuda.current_stream(t.device).synchronize()
 
 
 class ReverseKRanksEngine:
@@ -125,7 +131,8 @@ class ReverseKRanksEngine:
     generator before the build's draw) lets `rebuild` draw its samples
     as a build with the same seed would. `user_remap` (n,) int64, or
     None: the old→new row map that `users` already reflects
-    (`build(..., cluster_reorder=True)`).
+    (`build(..., cluster_reorder=True)`). `mesh` reaches a backend given
+    by name (an instance keeps its own) and stays on the engine.
     """
 
     def __init__(self, users: torch.Tensor, rank_table: RankTable,
@@ -134,9 +141,12 @@ class ReverseKRanksEngine:
                  user_remap=None, *, items: Optional[torch.Tensor] = None,
                  positions: Optional[torch.Tensor] = None,
                  weights: Optional[torch.Tensor] = None,
-                 generator_state=None):
+                 generator_state=None, mesh=None):
         self.config = config
-        self._backend = get_backend(backend)
+        self.mesh = mesh
+        self._backend = get_backend(
+            backend, mesh=None if isinstance(backend, QueryBackend)
+            else mesh)
         base = None
         if items is not None:
             if positions is None or weights is None:
@@ -169,7 +179,7 @@ class ReverseKRanksEngine:
               positions: Optional[torch.Tensor] = None,
               weights: Optional[torch.Tensor] = None,
               cluster_reorder: bool = False,
-              kmeans_init: Optional[torch.Tensor] = None
+              kmeans_init: Optional[torch.Tensor] = None, mesh=None
               ) -> "ReverseKRanksEngine":
         """Run Algorithm 1 on `device` (the CUDA card unless the caller
         passes device='cpu') and return a query-ready, mutable engine.
@@ -182,6 +192,9 @@ class ReverseKRanksEngine:
         rows before the build (`pruning.kmeans_layout`, whose initial
         centers are the rows `kmeans_init` if given), keeping the old→new
         map as `user_remap`; n is unchanged.
+
+        The build runs on the backend's substrate (`build_index`):
+        "sharded" runs `distributed.build_sharded` over `mesh`.
         """
         dev = resolve_device(device)
         users = users.to(device=dev, dtype=torch.float32).contiguous()
@@ -208,16 +221,16 @@ class ReverseKRanksEngine:
             perm, remap = _cluster_layout(users, kmeans_init)
             if perm is not None:
                 users = users[perm].contiguous()
-        bk = get_backend(backend)
+        bk = get_backend(backend, mesh=mesh)
         rt = bk.build_index(users, items, cfg, None, positions=positions,
                             weights=weights)
         return cls(users=users, rank_table=rt, config=cfg, backend=bk,
                    user_remap=remap, items=items, positions=positions,
-                   weights=weights, generator_state=state)
+                   weights=weights, generator_state=state, mesh=mesh)
 
     @classmethod
     def restore(cls, path, *, backend: Union[str, QueryBackend] = "dense",
-                device=None) -> "ReverseKRanksEngine":
+                device=None, mesh=None) -> "ReverseKRanksEngine":
         """Recover an engine from a persistence directory on `device`
         (the CUDA card unless the caller passes device='cpu').
 
@@ -242,7 +255,7 @@ class ReverseKRanksEngine:
         state = persist_mod.load_latest(path, device=device)
         snap = state.snapshot
         eng = cls(snap.users, snap.rank_table, state.config,
-                  backend=backend)
+                  backend=backend, mesh=mesh)
         # graft the durable lineage over the constructor's epoch-0 state
         eng._snapshots = SnapshotManager(snap)
         eng._next_item_id = state.next_item_id
@@ -432,6 +445,9 @@ class ReverseKRanksEngine:
             snap = self._require_base("upsert_users")
             n0 = snap.users.shape[0]
             if indices is None:
+                # a shape the backend cannot query fails before anything
+                # is published (sharded: n stays a multiple of the mesh)
+                self._backend.check_users_shape(n0 + vectors.shape[0])
                 idx = np.arange(n0, n0 + vectors.shape[0])
                 users_new = torch.cat([snap.users, vectors])
             else:
@@ -563,7 +579,8 @@ class ReverseKRanksEngine:
         `compact_dead_above`: when the deleted-user fraction exceeds it,
         dead rows are dropped from users and table, and the old→new map
         (−1 for dropped rows) composes onto `user_remap`; skipped when
-        the backend cannot query the smaller n. `reorder_clusters`:
+        the backend cannot query the smaller n (`check_users_shape`), and
+        the dead rows stay masked until a later rebuild. `reorder_clusters`:
         afterwards, reorder rows by k-means (`pruning.kmeans_layout`) and
         compose that map too.
 
@@ -656,7 +673,12 @@ class ReverseKRanksEngine:
         if (compact_dead_above is not None and live.size
                 and 1.0 - float(live.mean()) > compact_dead_above):
             keep = np.flatnonzero(live)
-            if keep.size:
+            try:
+                self._backend.check_users_shape(int(keep.size))
+                ok = keep.size > 0
+            except ValueError:
+                ok = False
+            if ok:
                 n_dropped = int(live.size - keep.size)
                 remap = np.full(live.size, -1, np.int64)
                 remap[keep] = np.arange(keep.size)

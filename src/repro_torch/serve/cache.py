@@ -108,8 +108,9 @@ class CachingBackend(BK.QueryBackend):
     """
 
     def __init__(self, inner="dense", *, capacity: int = 512,
-                 quantize_key_bits: Optional[int] = None):
-        self.inner = BK.get_backend(inner)
+                 quantize_key_bits: Optional[int] = None, mesh=None):
+        super().__init__(mesh=mesh)
+        self.inner = BK.get_backend(inner, mesh=mesh)
         self.name = f"cached:{self.inner.name}"
         self.capacity = int(capacity)
         if quantize_key_bits is not None and not (
@@ -183,6 +184,9 @@ class CachingBackend(BK.QueryBackend):
     def degrade(self, level):
         """Ladder levels act on the wrapped execution backend."""
         self.inner.degrade(level)
+
+    def check_users_shape(self, n):
+        return self.inner.check_users_shape(n)
 
     def _check_epoch(self, rt: RankTable, users, delta=None) -> None:
         """Cached results are only valid for the index GENERATION they
@@ -332,6 +336,6 @@ class CachingBackend(BK.QueryBackend):
 
 
 @BK.register_wrapper("cached")
-def _make_cached(inner: str) -> CachingBackend:
+def _make_cached(inner: str, *, mesh=None) -> CachingBackend:
     """Registry hook: `get_backend("cached:<inner>")` lands here."""
-    return CachingBackend(inner)
+    return CachingBackend(inner, mesh=mesh)

@@ -111,7 +111,7 @@ def test_engine_rejects_bad_queries_and_backends(flow):
         eng.query(st.items[:2], K, C)
     with pytest.raises(ValueError, match="unknown query backend"):
         ReverseKRanksEngine(st.users, st.rank_table, RankTableConfig(),
-                            backend="sharded")
+                            backend="no-such-backend")
     with pytest.raises(ValueError, match="unknown backend wrapper"):
         ReverseKRanksEngine(st.users, st.rank_table, RankTableConfig(),
                             backend="sharded:fused")
@@ -120,7 +120,8 @@ def test_engine_rejects_bad_queries_and_backends(flow):
         assert ReverseKRanksEngine(st.users, st.rank_table,
                                    RankTableConfig(),
                                    backend=spec).backend_name == spec
-    assert ReverseKRanksEngine.backends() == ["dense", "fused", "pruned"]
+    assert ReverseKRanksEngine.backends() == ["dense", "fused", "pruned",
+                                             "sharded"]
     assert (eng.n, eng.d) == (N, D)
 
 

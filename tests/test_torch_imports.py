@@ -2,8 +2,10 @@
 the reference package, also while it serves through `MicroBatcher` on
 the elastic and cached backends, spills and restores at every spec
 (`repro_torch.index.persist`), rebuilds in its maintenance loop and
-audits served queries (`repro_torch.obs.audit`), and its entry points
-never fall back to the CPU quietly."""
+audits served queries (`repro_torch.obs.audit`), queries a sharded
+engine (directly and through `pruned:sharded`), runs the ring exact ranks
+and a QSRP query, and its entry points never fall back to the CPU
+quietly."""
 import ast
 import os
 import subprocess
@@ -109,6 +111,27 @@ for spec in ("f32", "bf16", "int8"):
     finally:
         mb.close()
         aud.close()
+from repro_torch.core import distributed as D
+from repro_torch.core.qsrp import build_qsrp_index, qsrp_query
+users, items, _ = mid_mixture(0, 1024, 40, 8, device="cpu")
+mesh = ("cpu",) * 2
+eng = ReverseKRanksEngine.build(users, items, RankTableConfig(tau=8,
+                                omega=2, s=4), 0, backend="sharded",
+                                device="cpu", mesh=mesh)
+assert eng._backend.build_fallback == "" and eng.mesh == mesh
+res = eng.query_batch(items[:3], 5, 2.0)
+assert res.indices.shape == (3, 5) and res.r_lo.shape == (3, 10)
+eng = ReverseKRanksEngine(eng.users, eng.rank_table, eng.config,
+                          backend=PrunedBackend("sharded", mesh=mesh,
+                                                block_size=32,
+                                                max_union_frac=1.0))
+assert torch.equal(eng.query_batch(items[:3], 5, 2.0).indices, res.indices)
+assert eng._backend.stats.fallback == ""
+ring = D.ring_exact_ranks(users, items, items[3], mesh)
+assert ring.shape == (1024,) and ring.dtype == torch.float32
+idx = build_qsrp_index(users, items, levels=8)
+got, ranks, _ = qsrp_query(idx, users, items, items[3], 5, 2.0)
+assert got.shape == (5,) and ranks.shape == (5,)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
 assert not bad, bad
