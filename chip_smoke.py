@@ -176,6 +176,21 @@ Phases, each fatal on failure (exit code 1, no result line):
      (levels 1,000): build time, peak memory and bytes, then every query
      at c = 1 and 2, ranks exact, accuracy 1, n_refined not growing
      with c. Prints `digest sharded`.
+  9. the entry points as a user runs them (`entry_point_checks`), each
+     a subprocess under a finder that blocks JAX and the reference,
+     finding the kernels phase 2 built: (a) `python -m
+     repro_torch.launch.serve --backend fused` at Netflix size, 512
+     queries: the f32 index bytes, all served, the latency histogram's
+     count, the §5 grades; (b) int8 behind elastic:fused: one program;
+     (c) with the update stream, persistence and the auditor: a
+     rebuild, an audit, then `restore` with m + 4 items a batch; (d) a
+     long run scraped at `/metrics`, then SIGTERM: exit 0 within the
+     drain bound plus a spill, `restore`; (e) `--mf` at the Netflix
+     Prize's 100,480,507 ratings: the loss falls, d = 202; two trainings
+     at 10,000,000 ratings bitwise equal, the ratings bitwise unchunked;
+     (f) the three examples at their reference sizes, at once. Each run
+     prints its wall time, the launches its wrappers made (counted from 0
+     in its own process) and its peak device memory.
 
 `--digests SRC` runs only phase 4's data, its f32 build, K3 grading,
 phase 4c's reordered f32 engine and the storage tier's tables with the
@@ -210,6 +225,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -218,8 +234,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-N, M, D = 480_189, 17_770, 200     # Netflix (src/repro/configs/paper_engine.py)
-TAU, OMEGA, S_PER = 500, 10, 64    # DEFAULT_TABLE
+from repro_torch.configs.paper_engine import DEFAULT_TABLE, NETFLIX  # noqa
+
+N, M, D = NETFLIX.n_users, NETFLIX.n_items, NETFLIX.d
+TAU, OMEGA, S_PER = DEFAULT_TABLE.tau, DEFAULT_TABLE.omega, DEFAULT_TABLE.s
 S_MAIN = OMEGA * S_PER             # samples of the build (K2)
 K, C, B = 10, 2.0, 16
 D_WIDE = 1031                      # past every former shared-memory cap
@@ -237,6 +255,65 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+# Phase 9 runs the port's entry points in subprocesses that cannot import
+# JAX or the reference (the finder of tests/test_torch_imports.py). The
+# runner takes a module to run as `python -m` would, with its arguments,
+# or `-c` and a statement; when it returns, the runner prints the kernel
+# launches the process made (its counts start at 0), the seconds each
+# kernel's build took (0 where the library was already built), the peak
+# device memory and any module of JAX or the reference that got loaded.
+RUNNER = r"""
+import importlib.abc, json, runpy, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+try:
+    if sys.argv[1] == "-c":
+        exec(sys.argv[2])
+    else:
+        sys.argv = sys.argv[1:]
+        runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+finally:
+    import torch
+    from repro_torch.kernels import _build, ops
+    print("runner: " + json.dumps({
+        "launches": {k: v for k, v in ops.LAUNCHES.items() if v},
+        "built_s": {k: r["seconds"] for k, r in _build.BUILD_INFO.items()},
+        "peak_bytes": (torch.cuda.max_memory_allocated()
+                       if torch.cuda.is_initialized() else None),
+        "leaked": sorted(m for m in sys.modules if m.split(".")[0] in
+                         ("jax", "jaxlib", "ml_dtypes", "repro"))}),
+        flush=True)
+"""
+
+
+def run_blocked(*args: str, timeout: float, popen: bool = False):
+    """Run RUNNER with `args` in a fresh interpreter, unbuffered, with this
+    tree's `src` first on the path: a finished `CompletedProcess`, or
+    with popen=True the running `Popen` (text pipes)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [env.get("PYTHONPATH")] if p])
+    cmd = [sys.executable, "-u", "-c", RUNNER, *args]
+    if popen:
+        return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    return subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def runner_report(stdout: str) -> dict:
+    """The runner's closing record in a subprocess's output."""
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("runner: ")]
+    check(lines, "the runner printed no record")
+    return json.loads(lines[-1][len("runner: "):])
 
 
 def nvidia_smi_line() -> str:
@@ -3109,6 +3186,412 @@ def sharded_checks(dev, *, users, items, cfg, pos, w, qs, rt, int8, truth,
     return {"checks": checks, "digest": digest}
 
 
+# ------------------------------------------------------- 9. entry points
+NETFLIX_RATINGS = 100_480_507      # the Netflix Prize's ratings, (e)
+MF_EPOCHS = 2                      # (e)'s --mf-epochs
+MF_CHECK_RATINGS = 10_000_000      # (e)'s determinism check, one epoch
+SERVE_QUERIES = 512                # (a), (b) and (c)'s --queries
+CHURN_REBUILD_RATIO = 0.01         # (c): a rebuild every ~15 update batches
+LONG_QUERIES = 100_000             # (d)'s run, which SIGTERM stops
+DRAIN_S = 2.0                      # (d)'s --drain-s
+SPILL_S = 15.0                     # (d): an int8 spill and a rebuild's, s
+EXAMPLES = ("quickstart", "ablation", "serve_retrieval")
+
+
+def index_bytes(spec: str, n: int, d: int, tau: int) -> int:
+    """`memory_bytes()` of a static index, as phases 4 and 4b read it:
+    at f32 the thresholds, the table and the users; at int8 their codes,
+    the five per-row f32 vectors, the stored rows, scale and slack."""
+    if spec == "f32":
+        return n * (8 * tau + 4 * d)
+    return n * (2 * tau + d + 28)
+
+
+class Lines:
+    """The lines a running process prints, read by threads of their own,
+    so that every wait on them is bounded."""
+
+    def __init__(self, proc):
+        import threading
+        self.proc = proc
+        self.out, self.err = [], []
+        self._cond = threading.Condition()
+        self._threads = [threading.Thread(target=self._read, args=(f, buf),
+                                          daemon=True)
+                         for f, buf in ((proc.stdout, self.out),
+                                        (proc.stderr, self.err))]
+        for t in self._threads:
+            t.start()
+
+    def _read(self, f, buf) -> None:
+        for line in f:
+            with self._cond:
+                buf.append(line)
+                self._cond.notify_all()
+        with self._cond:
+            self._cond.notify_all()
+
+    def wait_for(self, pattern: str, timeout: float) -> str:
+        """The first stdout line matching `pattern`; fails at the timeout
+        or when the process has ended without one."""
+        import re
+        rx, seen = re.compile(pattern), 0
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while True:
+                ended = not any(t.is_alive() for t in self._threads)
+                for line in self.out[seen:]:
+                    if rx.search(line):
+                        return line
+                seen = len(self.out)
+                left = deadline - time.monotonic()
+                check(left > 0 and not ended,
+                      f"no line matching {pattern!r} before the process "
+                      f"{'ended' if ended else 'timed out'} (stderr: "
+                      f"{''.join(self.err)[-3000:]})")
+                self._cond.wait(timeout=min(left, 0.5))
+
+    def finish(self, timeout: float) -> tuple:
+        """Wait for the process (killed past `timeout`); (rc, out, err)."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+            raise SmokeFailure(f"still running after {timeout} s: "
+                               f"{''.join(self.out)[-3000:]}")
+        finally:
+            for t in self._threads:
+                t.join(timeout=60)
+        return rc, "".join(self.out), "".join(self.err)
+
+
+def entry_start(args) -> Lines:
+    """Start one entry point under the import blocker."""
+    return Lines(run_blocked(*args, timeout=None, popen=True))
+
+
+def entry_finish(label: str, lines: Lines, t0: float, timeout: float
+                 ) -> tuple:
+    """Wait for a started entry point; fail on a non-zero exit, an import
+    of JAX or the reference, or a rebuilt kernel. Prints its wall time
+    (since `t0`), launches, peak device memory and its lines (not the
+    periodic stats lines). Returns (stdout, runner record, wall s)."""
+    rc, out, err = lines.finish(timeout)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        print(out[-6000:])
+        print(err[-6000:], file=sys.stderr)
+    check(rc == 0, f"({label}) exit {rc}")
+    return out, entry_report(label, out, wall), wall
+
+
+def entry_run(label: str, args, timeout: float) -> tuple:
+    """`entry_start` then `entry_finish`."""
+    return entry_finish(label, entry_start(args), time.perf_counter(),
+                        timeout)
+
+
+def entry_report(label: str, stdout: str, wall: float) -> dict:
+    rep = runner_report(stdout)
+    check(not rep["leaked"], f"({label}) imported {rep['leaked']}")
+    check(all(v == 0.0 for v in rep["built_s"].values()),
+          f"({label}) built a kernel again: {rep['built_s']}")
+    peak = rep["peak_bytes"]
+    print(f"  ({label}) {wall:.1f} s wall; launches {rep['launches']}; "
+          f"peak device memory "
+          f"{'n/a' if peak is None else f'{peak / 1e9:.2f} GB'}")
+    for line in stdout.splitlines():
+        if not line.startswith(("runner: ", "  [")):
+            print(f"    | {line}")
+    return rep
+
+
+def parse(pattern: str, stdout: str, label: str):
+    import re
+    m = re.search(pattern, stdout, re.M)
+    check(m is not None, f"({label}) no line matching {pattern!r}")
+    return m
+
+
+def graded(stdout: str, label: str) -> tuple:
+    """The accuracy line's numbers, each checked: accuracy in [0, 1], the
+    overall ratio finite and ≥ 1."""
+    m = parse(r"^accuracy (\S+)  overall-ratio (\S+)", stdout, label)
+    acc, ratio = float(m.group(1)), float(m.group(2))
+    check(0.0 <= acc <= 1.0 and math.isfinite(ratio) and ratio >= 1.0,
+          f"({label}) accuracy {acc}, overall ratio {ratio}")
+    return acc, ratio
+
+
+def index_mib(stdout: str, label: str, want_bytes: int) -> float:
+    got = float(parse(r"^build: \S+s  index (\S+) MiB", stdout,
+                      label).group(1))
+    check(abs(got - want_bytes / 2**20) <= 0.1,
+          f"({label}) index {got} MiB, expected {want_bytes / 2**20:.1f}")
+    return got
+
+
+def launched(rep: dict, label: str, name: str, *, exactly=None) -> int:
+    """A kernel's launches in a run on the card: at least one, or exactly
+    `exactly`."""
+    got = rep["launches"].get(name, 0)
+    ok = got >= 1 if exactly is None else got == exactly
+    check(ok, f"({label}) {name} launched {got} times"
+          + ("" if exactly is None else f", expected {exactly}"))
+    return got
+
+
+def entry_point_checks(dev, *, n=N, m=M, d=D, tau=TAU,
+                       queries=SERVE_QUERIES, long_queries=LONG_QUERIES,
+                       n_ratings=NETFLIX_RATINGS, mf_epochs=MF_EPOCHS,
+                       mf_check_ratings=MF_CHECK_RATINGS, examples=None,
+                       timeout=600.0) -> dict:
+    """Phase 9: the port's entry points as a user runs them, each in a
+    subprocess under the import blocker (`run_blocked`), at the sizes
+    given (Netflix's by default) on `dev` (the card, or the CPU for a
+    rehearsal: then `--device cpu` is passed and launch counts, which
+    only the card's wrappers make, are not checked).
+
+      (a) `launch.serve --backend fused`: exit 0, the f32 index bytes,
+          every query served, the latency histogram's count = served,
+          K2/K1/K3 launched (K3 once a graded query);
+      (b) `--storage int8 --backend elastic:fused --pipeline-depth 2`:
+          the int8 index bytes, `query_compiled_programs` ≤ 1 (one
+          capacity bucket at this n, one padded tick shape);
+      (c) the same with `--update-stream --persist-dir --audit-fraction
+          0.05`: ≥ 1 rebuild, ≥ 2 epochs served, ≥ 1 audited sample; then
+          `ReverseKRanksEngine.restore` here holds m + 4·b live items for
+          the b update batches the flags imply;
+      (d) a long int8 run with `--update-stream --persist-dir
+          --metrics-port 0`: `/metrics` scraped after the first stats line
+          holds `serve_request_latency_ms`; SIGTERM, then exit 0 within
+          the drain bound plus a spill, `shutdown complete`; `restore` of
+          its directory holds more than m live items, m mod 4;
+      (e) `--mf` at `n_ratings`: the MF loss falls, the engine runs at
+          d + 2 (its f32 index bytes); here, two trainings of one epoch
+          at `mf_check_ratings` are bitwise equal, an epoch's replayed
+          CUDA graph is bitwise its steps launched one by one, and
+          `synthetic_ratings` computed in one chunk is bitwise the
+          chunked one;
+      (f) the examples, each run as `python -m` (on the card, at their
+          reference sizes) or through `examples` = {name: statement},
+          their three processes at once (each one's wall time is from
+          the common start).
+    """
+    import shutil
+    import signal
+    import tempfile
+    import urllib.request
+    import torch
+    from repro_torch.core.engine import ReverseKRanksEngine
+    from repro_torch.data.mf import MFConfig, init_mf, mf_epoch, train_mf
+    from repro_torch.data.pipeline import synthetic_ratings
+    cuda = dev.type == "cuda"
+    serve = "repro_torch.launch.serve"
+    size = ["--n", str(n), "--m", str(m), "--d", str(d), "--tau", str(tau)]
+    if not cuda:
+        size += ["--device", "cpu"]
+    tmp = tempfile.mkdtemp(prefix="entry-")
+    checks, times = [], {}
+    try:
+        # (a) plain serving, f32 fused
+        mj = os.path.join(tmp, "a.json")
+        out, rep, times["a"] = entry_run("a", [
+            serve, *size, "--backend", "fused", "--queries", str(queries),
+            "--max-batch", "16", "--metrics-json", mj], timeout)
+        index_mib(out, "a", index_bytes("f32", n, d, tau))
+        served = int(parse(r"^  ticks: (\d+) reqs", out, "a").group(1))
+        check(served == queries, f"(a) served {served} of {queries}")
+        with open(mj) as f:
+            snap = json.load(f)["metrics"]
+        lat = snap["serve_request_latency_ms"][0]["count"]
+        check(lat == served, f"(a) latency histogram count {lat}, served "
+              f"{served}")
+        acc, ratio = graded(out, "a")
+        if cuda:
+            launched(rep, "a", "k2_table_build", exactly=1)
+            launched(rep, "a", "k1_bound_ranks")
+            launched(rep, "a", "k3_exact_ranks", exactly=min(queries, 20))
+        print(f"  (a) {served} served, latency count {lat}, accuracy {acc}, "
+              f"overall ratio {ratio}")
+        checks.append("a")
+
+        # (b) the int8 tier behind elastic serving
+        mj = os.path.join(tmp, "b.json")
+        out, rep, times["b"] = entry_run("b", [
+            serve, *size, "--storage", "int8", "--backend", "elastic:fused",
+            "--pipeline-depth", "2", "--queries", str(queries),
+            "--max-batch", "16", "--metrics-json", mj], timeout)
+        index_mib(out, "b", index_bytes("int8", n, d, tau))
+        with open(mj) as f:
+            snap = json.load(f)["metrics"]
+        progs = snap["query_compiled_programs"][0]["value"]
+        check(progs <= 1, f"(b) {progs} programs for one (capacity bucket, "
+              "tick shape) pair")
+        acc, ratio = graded(out, "b")
+        if cuda:
+            launched(rep, "b", "k2_table_build")
+            launched(rep, "b", "k5_bound_ranks_int8_elastic")
+            launched(rep, "b", "k3_exact_ranks", exactly=min(queries, 20))
+        print(f"  (b) query_compiled_programs {progs:g}; accuracy {acc}, "
+              f"overall ratio {ratio}")
+        checks.append("b")
+
+        # (c) churn, durability and the auditor
+        pd = os.path.join(tmp, "c")
+        out, rep, times["c"] = entry_run("c", [
+            serve, *size, "--storage", "int8", "--backend", "elastic:fused",
+            "--queries", str(queries), "--max-batch", "16",
+            "--update-stream", "--rebuild-delta-ratio",
+            str(CHURN_REBUILD_RATIO), "--persist-dir", pd,
+            "--audit-fraction", "0.05", "--stats-every", "256"], timeout)
+        mu = parse(r"update stream: final epoch (\d+), (\d+) rebuild\(s\), "
+                   r"epochs served \[(.*?)\]", out, "c")
+        rebuilds, served_epochs = int(mu.group(2)), mu.group(3).split(",")
+        check(rebuilds >= 1, "(c) the maintenance loop never rebuilt")
+        check(len(served_epochs) >= 2, f"(c) epochs served {served_epochs}")
+        scored = int(parse(r"audit: (\d+) scored", out, "c").group(1))
+        check(scored >= 1, "(c) the auditor scored nothing")
+        graded(out, "c")
+        if cuda:
+            launched(rep, "c", "k2_table_build")
+            launched(rep, "c", "k5_bound_ranks_int8_elastic")
+            launched(rep, "c", "k3_exact_ranks",
+                     exactly=scored + min(queries, 20))
+        batches = (queries - 1) // 16
+        t0 = time.perf_counter()
+        eng = ReverseKRanksEngine.restore(pd, backend="fused", device=dev)
+        t_restore = time.perf_counter() - t0
+        live = eng.live_item_ids().size
+        check(live == m + (8 - 4) * batches,
+              f"(c) restored {live} live items, expected "
+              f"{m + 4 * batches} ({batches} update batches)")
+        check(eng.epoch == int(mu.group(1)),
+              f"(c) restored epoch {eng.epoch}, served {mu.group(1)}")
+        del eng
+        print(f"  (c) {rebuilds} rebuild(s), {len(served_epochs)} epochs "
+              f"served, {scored} audited; restore {t_restore:.2f} s: "
+              f"epoch {mu.group(1)}, {live} live items = {m} + 4·{batches}")
+        checks.append("c")
+
+        # (d) graceful shutdown and the metrics endpoint
+        pd = os.path.join(tmp, "d")
+        t0 = time.perf_counter()
+        lines = entry_start([
+            serve, *size, "--storage", "int8", "--backend", "elastic:fused",
+            "--queries", str(long_queries), "--max-batch", "16",
+            "--update-stream", "--persist-dir", pd, "--metrics-port", "0",
+            "--stats-every", "256", "--drain-s", str(DRAIN_S)])
+        try:
+            url = lines.wait_for(r"^metrics: http://", timeout).split()[1]
+            lines.wait_for(r"^  \[256/", timeout)
+            with urllib.request.urlopen(url, timeout=60) as resp:
+                text = resp.read().decode()
+            check("serve_request_latency_ms" in text,
+                  "(d) /metrics lacks serve_request_latency_ms")
+            t_sig = time.perf_counter()
+            lines.proc.send_signal(signal.SIGTERM)
+        except BaseException:
+            lines.proc.kill()
+            lines.proc.wait(timeout=60)
+            raise
+        out, rep, times["d"] = entry_finish("d", lines, t0, timeout)
+        t_exit = time.perf_counter() - t_sig
+        check("shutdown complete" in out, "(d) no `shutdown complete`")
+        check(t_exit <= DRAIN_S + SPILL_S,
+              f"(d) exited {t_exit:.1f} s after SIGTERM")
+        if cuda:
+            launched(rep, "d", "k5_bound_ranks_int8_elastic")
+        t0 = time.perf_counter()
+        eng = ReverseKRanksEngine.restore(pd, backend="fused", device=dev)
+        t_restore = time.perf_counter() - t0
+        live = eng.live_item_ids().size
+        check(live > m and (live - m) % 4 == 0,
+              f"(d) restored {live} live items")
+        del eng
+        print(f"  (d) /metrics scraped ({len(text)} bytes); exit 0 "
+              f"{t_exit:.2f} s after SIGTERM (drain bound {DRAIN_S} s); "
+              f"restore {t_restore:.2f} s: {live} live items")
+        checks.append("d")
+
+        # (e) MF embeddings at the Netflix Prize's rating count
+        out, rep, times["e"] = entry_run("e", [
+            serve, *size, "--mf", "--n-ratings", str(n_ratings),
+            "--mf-epochs", str(mf_epochs), "--backend", "fused",
+            "--queries", "64"], timeout)
+        mm = parse(r"^  MF: (\d+) epoch\(s\) of (\S+) steps in (\S+)s "
+                   r"\((\S+) s/epoch\); losses \[(.*)\]$", out, "e")
+        losses = [float(x) for x in mm.group(5).split(",")]
+        check(len(losses) == mf_epochs and all(map(math.isfinite, losses)),
+              f"(e) losses {losses}")
+        check(mf_epochs < 2 or losses[-1] < losses[0],
+              f"(e) the MF loss did not fall: {losses}")
+        index_mib(out, "e", index_bytes("f32", n, d + 2, tau))
+        graded(out, "e")
+        if cuda:
+            launched(rep, "e", "k2_table_build", exactly=1)
+            launched(rep, "e", "k1_bound_ranks")
+            launched(rep, "e", "k3_exact_ranks", exactly=20)
+        print(f"  (e) {mm.group(1)} epoch(s) of {mm.group(2)} steps, "
+              f"{mm.group(4)} s an epoch; losses {losses}; d = {d + 2}")
+        ii, jj, rr = synthetic_ratings(0, n, m, mf_check_ratings, device=dev)
+        _, _, whole = synthetic_ratings(0, n, m, mf_check_ratings,
+                                        device=dev, chunk=mf_check_ratings)
+        check(torch.equal(rr, whole),
+              "(e) chunked synthetic_ratings differ from one chunk")
+        cfg = MFConfig(d=d, epochs=1)
+        states, t_mf = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            states.append(train_mf(0, n, m, ii, jj, rr, cfg, device=dev)[0])
+            t_mf.append(time.perf_counter() - t0)
+        check(all(torch.equal(states[0][k], states[1][k])
+                  for k in states[0]),
+              "(e) two trainings of one epoch differ")
+        # the replayed graph's epoch against its steps launched one by one
+        init = init_mf(0, n, m, cfg, device=dev)
+        perm = torch.randperm(mf_check_ratings, device=dev)
+        t0 = time.perf_counter()
+        eager, _ = mf_epoch(init, ii, jj, rr, perm, cfg, graph=False)
+        t_eager = time.perf_counter() - t0
+        replayed, _ = mf_epoch(init, ii, jj, rr, perm, cfg)
+        check(all(torch.equal(eager[k], replayed[k]) for k in eager),
+              "(e) the graph's epoch differs from the eager steps'")
+        del ii, jj, rr, whole, states, init, eager, replayed
+        print(f"  (e) two trainings at {mf_check_ratings:,} ratings, one "
+              f"epoch of {mf_check_ratings // cfg.batch:,} steps: bitwise "
+              f"equal ({t_mf[0]:.2f} / {t_mf[1]:.2f} s); an epoch of "
+              f"eager steps bitwise the graph's ({t_eager:.2f} s); chunked "
+              "ratings bitwise one chunk")
+        checks.append("e")
+
+        # (f) the examples, their three processes at once
+        t0 = time.perf_counter()
+        runs = {name: entry_start(
+            [f"repro_torch.examples.{name}"] if examples is None
+            else ["-c", examples[name]]) for name in EXAMPLES}
+        try:
+            for name, lines in runs.items():
+                out, rep, _ = entry_finish(f"f {name}", lines, t0, timeout)
+                check("acc" in out, f"(f) {name} printed no grades")
+                if cuda:
+                    launched(rep, f"f {name}", "k2_table_build")
+                    launched(rep, f"f {name}", "k3_exact_ranks")
+        finally:
+            for lines in runs.values():
+                if lines.proc.poll() is None:
+                    lines.proc.kill()
+                    lines.proc.wait(timeout=60)
+        times["f"] = time.perf_counter() - t0
+        checks.append("f")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("  phase 9 wall times (s): " + ", ".join(
+        f"({k}) {v:.1f}" for k, v in times.items()))
+    return {"checks": checks, "times": times}
+
+
 # ------------------------------------------------------------ main path
 def digests_of(torch, exact_mod, rt_mod, ReverseKRanksEngine,
                RankTableConfig, synthetic_embeddings, ops, query_mod,
@@ -3182,12 +3665,13 @@ def main() -> int:
             print("usage: chip_smoke.py [--digests SRC]", file=sys.stderr)
             return 2
         other = str(Path(sys.argv[2]).resolve())
+        # measure the package under SRC: forget this tree's, which the
+        # sizes above were read from
+        for name in [m for m in sys.modules
+                     if m.split(".")[0] == "repro_torch"]:
+            del sys.modules[name]
         sys.path.insert(0, other)
-    try:
-        import torch
-    except ImportError as e:
-        print(f"FAIL: torch is not importable: {e}", file=sys.stderr)
-        return 1
+    import torch
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -4454,6 +4938,19 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
           f"{time.perf_counter() - t0:.1f} s; {nvidia_smi_line()}")
     check(report8["checks"] == list("abcde"),
           "phase 8 did not run every check")
+    del report8
+
+    # 9. the entry points, each in a subprocess under the import blocker
+    print(f"phase: the entry points (launch.serve, the MF trainer, the "
+          f"examples) in subprocesses without JAX, n={N} m={M} d={D} "
+          f"tau={TAU}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report9 = entry_point_checks(dev)
+    print(f"  phase 9: checks {''.join(report9['checks'])} passed, "
+          f"{time.perf_counter() - t0:.1f} s; {nvidia_smi_line()}")
+    check(report9["checks"] == list("abcdef"),
+          "phase 9 did not run every check")
     return out
 
 

@@ -1,13 +1,16 @@
-"""Synthetic embeddings, drawn from a `torch.Generator`.
+"""Synthetic embeddings and ratings, drawn from a `torch.Generator`.
 
 `synthetic_embeddings` is the counterpart of
 `repro/data/pipeline.py::synthetic_embeddings`: the same distribution
 (Gaussian rows plus shared latent clusters, Gaussian item norm spread,
-paper Fig. 2). `zipf_clustered` and `mid_mixture` are the counterparts
-of the pruning bench's user regimes (`benchmarks/common.py`): Zipf-sized
-tight user clusters in cluster-contiguous row order, and the same core
-mixed with an i.i.d. noise floor and shuffled. The numbers differ from
-`jax.random`'s; the distributions are the same.
+paper Fig. 2). `synthetic_ratings` is the counterpart of the reference's
+function of that name: low-rank ratings on random (user, item) pairs,
+the input of the MF trainer (`data.mf`). `zipf_clustered` and
+`mid_mixture` are the counterparts of the pruning bench's user regimes
+(`benchmarks/common.py`): Zipf-sized tight user clusters in
+cluster-contiguous row order, and the same core mixed with an i.i.d.
+noise floor and shuffled. The numbers differ from `jax.random`'s; the
+distributions are the same.
 """
 from __future__ import annotations
 
@@ -37,6 +40,55 @@ def synthetic_embeddings(seed: int, n: int, m: int, d: int, *,
     scale = 1.0 + norm_spread * torch.randn((m, 1), generator=g, device=dev,
                                             dtype=f32)
     return users, items * torch.abs(scale)
+
+
+# ratings in one chunk of `ratings_from`: its two (chunk, d_true) f32
+# gathers take 256 MiB each at d_true = 16, where the Netflix Prize's
+# 100,480,507 ratings at once would take 6.4 GB each
+RATINGS_CHUNK = 1 << 22
+
+
+def ratings_from(ut: torch.Tensor, vt: torch.Tensor, ii: torch.Tensor,
+                 jj: torch.Tensor, noise: torch.Tensor, *,
+                 chunk: int = RATINGS_CHUNK) -> torch.Tensor:
+    """r_k = ut[ii_k]·vt[jj_k] + 0.05·noise_k, (n_obs,) f32, computed
+    `chunk` ratings at a time. Each dot product sums its d_true products
+    pairwise in a fixed order by elementwise adds (no reduction kernel,
+    whose order may follow the shape), so a rating's bits do not depend
+    on the chunk it falls in."""
+    out = torch.empty(ii.shape, dtype=torch.float32, device=ut.device)
+    for s in range(0, ii.shape[0], chunk):
+        e = min(s + chunk, ii.shape[0])
+        p = ut[ii[s:e]] * vt[jj[s:e]]
+        while p.shape[1] > 1:
+            h = p.shape[1] // 2
+            q = p[:, :h] + p[:, h:2 * h]
+            p = torch.cat([q, p[:, 2 * h:]], 1) if p.shape[1] % 2 else q
+        out[s:e] = p[:, 0] + 0.05 * noise[s:e]
+    return out
+
+
+def synthetic_ratings(seed: int, n: int, m: int, n_obs: int,
+                      d_true: int = 16, *, device=None,
+                      chunk: int = RATINGS_CHUNK
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Low-rank ground-truth ratings r_ij = u_i·v_j + ε on a random sample
+    of (i, j) pairs — input for the MF trainer. Returns (ii int32, jj
+    int32, r f32), each (n_obs,), drawn on `device` (the CUDA card unless
+    the caller passes device='cpu') from one generator: the true factors
+    ut (n, d_true) and vt (m, d_true), the pairs, then the noise. The
+    ratings are computed `chunk` at a time (`ratings_from`), bitwise the
+    same for any chunk."""
+    dev, g = _generator(seed, device)
+    f32 = torch.float32
+    ut = torch.randn((n, d_true), generator=g, device=dev,
+                     dtype=f32) / d_true ** 0.25
+    vt = torch.randn((m, d_true), generator=g, device=dev,
+                     dtype=f32) / d_true ** 0.25
+    ii = torch.randint(n, (n_obs,), generator=g, device=dev).to(torch.int32)
+    jj = torch.randint(m, (n_obs,), generator=g, device=dev).to(torch.int32)
+    noise = torch.randn((n_obs,), generator=g, device=dev, dtype=f32)
+    return ii, jj, ratings_from(ut, vt, ii, jj, noise, chunk=chunk)
 
 
 def _generator(seed: int, device) -> tuple[torch.device, torch.Generator]:

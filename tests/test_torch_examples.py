@@ -1,0 +1,122 @@
+"""The paper's examples on the port (`repro_torch.examples`), on the CPU.
+
+Each example is a `main(*, device=None, **sizes)` whose sizes default to
+the reference example's module constants (read from its file: the
+reference examples run at import). Here each runs at a small size on the
+CPU and must print the reference example's lines and grade its answers
+with the §5 metrics (accuracy in [0, 1], overall ratio finite and ≥ 1).
+The CLI-style runs under the import blocker are in
+tests/test_torch_imports.py.
+
+Hygiene: two intra-op threads; the MicroBatcher of `serve_retrieval` is
+closed by its `with` block.
+"""
+import ast
+import inspect
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.examples import ablation, quickstart, serve_retrieval
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def _reference_constants(name: str) -> dict:
+    """Module-level constants of a reference example, and the keywords of
+    its calls that are literals."""
+    tree = ast.parse((EXAMPLES / f"{name}.py").read_text())
+    out = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and isinstance(node.targets[0],
+                                                       (ast.Tuple, ast.Name)):
+            names = (node.targets[0].elts
+                     if isinstance(node.targets[0], ast.Tuple)
+                     else [node.targets[0]])
+            values = (node.value.elts if isinstance(node.value, ast.Tuple)
+                      else [node.value])
+            for n, v in zip(names, values):
+                if isinstance(n, ast.Name) and isinstance(v, ast.Constant):
+                    out[n.id] = v.value
+        if isinstance(node, ast.keyword) and isinstance(node.value,
+                                                        ast.Constant):
+            out.setdefault(node.arg, node.value.value)
+    return out
+
+
+def _defaults(fn) -> dict:
+    return {k: p.default for k, p in inspect.signature(fn).parameters.items()
+            if p.default is not inspect.Parameter.empty}
+
+
+@pytest.mark.parametrize("module, name, mapping", [
+    (quickstart, "quickstart", dict(n_users="N_USERS", n_items="N_ITEMS",
+                                    dim="DIM", k="K", c="C")),
+    (ablation, "ablation", dict(n="N", m="M", d="D", k="K", c="C",
+                                n_eval="N_EVAL")),
+    (serve_retrieval, "serve_retrieval", dict(
+        n_users="N_USERS", n_items="N_ITEMS", n_ratings="n_obs", k="K",
+        c="C")),
+])
+def test_sizes_default_to_the_reference_example(module, name, mapping):
+    ref = _reference_constants(name)
+    ours = _defaults(module.main)
+    assert ours.pop("device") is None
+    assert ours == {k: ref[v] for k, v in mapping.items()}
+
+
+def _graded(acc, ratio):
+    assert 0.0 <= acc <= 1.0
+    assert np.isfinite(ratio) and ratio >= 1.0
+
+
+def test_quickstart_small(capsys):
+    got = quickstart.main(device="cpu", n_users=1000, n_items=400, dim=32)
+    _graded(got["accuracy"], got["overall_ratio"])
+    out = capsys.readouterr().out.splitlines()
+    for head in ("index built:", "top-10 users for item 42:",
+                 "estimated ranks:", "Lemma-1 closed the search in step 2:",
+                 "accuracy="):
+        assert any(ln.startswith(head) for ln in out), head
+
+
+def test_ablation_small(capsys):
+    rows = ablation.main(device="cpu", n=1000, m=400, d=32, n_eval=3)
+    assert [r[0] for r in rows] == [f"omega={o},s={s},mode={mode}"
+                                    for o, s, mode in ablation.CONFIGS]
+    for _, acc, ratio in rows:
+        _graded(acc, ratio)
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].split() == ["config", "acc", "ratio", "build_s"]
+    assert len(out) == 1 + len(ablation.CONFIGS)
+
+
+def test_serve_retrieval_small(capsys):
+    got = serve_retrieval.main(device="cpu", n_users=600, n_items=250,
+                               n_ratings=30_000)
+    assert len(got["losses"]) == 8 and got["losses"][-1] < got["losses"][0]
+    _graded(got["accuracy"], got["overall_ratio"])
+    out = capsys.readouterr().out.splitlines()
+    assert any(ln.startswith("MF: rmse-ish loss") and ln.endswith(
+        "embeddings d=66") for ln in out)
+    assert any(ln.startswith("served 16 queries in") and
+               "(cached:dense backend)" in ln for ln in out)
+    assert any(ln.startswith("accuracy ") for ln in out)
+
+
+def test_examples_need_a_card_or_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    for main in (quickstart.main, ablation.main, serve_retrieval.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main()

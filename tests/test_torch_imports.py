@@ -4,8 +4,10 @@ the elastic and cached backends, spills and restores at every spec
 (`repro_torch.index.persist`), rebuilds in its maintenance loop and
 audits served queries (`repro_torch.obs.audit`), queries a sharded
 engine (directly and through `pruned:sharded`), runs the ring exact ranks
-and a QSRP query, and its entry points never fall back to the CPU
-quietly."""
+and a QSRP query; its serving driver (`python -m
+repro_torch.launch.serve`) and the examples run under the same blocker
+(`chip_smoke.run_blocked`); and its entry points never fall back to the
+CPU quietly."""
 import ast
 import os
 import subprocess
@@ -183,3 +185,41 @@ def test_f32_products_stay_ieee():
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+_SMALL = ("--n", "1024", "--m", "400", "--d", "16", "--tau", "16",
+          "--queries", "16", "--max-batch", "4", "--device", "cpu")
+
+
+@pytest.mark.parametrize("args", [
+    ("repro_torch.launch.serve", *_SMALL, "--backend", "elastic:fused",
+     "--storage", "bf16", "--audit-fraction", "0.5"),
+    ("repro_torch.launch.serve", *_SMALL, "--backend", "cached:pruned:fused",
+     "--mf", "--n-ratings", "9000", "--mf-epochs", "1"),
+    ("-c", "from repro_torch.examples import quickstart\n"
+           "quickstart.main(device='cpu', n_users=500, n_items=200, dim=16)"),
+    ("-c", "from repro_torch.examples import ablation\n"
+           "ablation.main(device='cpu', n=500, m=200, d=16, n_eval=2)"),
+    ("-c", "from repro_torch.examples import serve_retrieval\n"
+           "serve_retrieval.main(device='cpu', n_users=300, n_items=120, "
+           "n_ratings=9000)"),
+], ids=["serve-elastic-bf16-audit", "serve-cached-pruned-mf", "quickstart",
+        "ablation", "serve_retrieval"])
+def test_cli_and_examples_run_without_jax_or_reference(args):
+    import chip_smoke
+    out = chip_smoke.run_blocked(*args, timeout=180)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert chip_smoke.runner_report(out.stdout)["leaked"] == []
+    assert "acc" in out.stdout          # each prints its §5 grades
+
+
+@pytest.mark.parametrize("module", ["repro_torch.examples.quickstart",
+                                    "repro_torch.examples.ablation",
+                                    "repro_torch.examples.serve_retrieval"])
+def test_examples_without_device_need_a_card(module):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    import chip_smoke
+    out = chip_smoke.run_blocked(module, timeout=180)
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr
