@@ -191,6 +191,22 @@ Phases, each fatal on failure (exit code 1, no result line):
      (f) the three examples at their reference sizes, at once. Each run
      prints its wall time, the launches its wrappers made (counted from 0
      in its own process) and its peak device memory.
+  10. the LM substrate's serving path (`lm_checks`): (a) gemma-2b at its
+     published size, parameters from a seeded generator on the card:
+     prefill of 8 prompts of 2,048 tokens (the chunked attention),
+     teacher-forced decode of each prompt's first 64 tokens through a
+     cache of 2,080 slots (argmax agreement with the prefill >= 0.8, the
+     reference's criterion; the largest logit difference), 32 greedy
+     tokens: prefill tokens/s, ms a decode step, peak memory; (b) the
+     other nine architectures at full width and the `reduced` rule's
+     depth, each a prefill of 2 x 64 and the same check (MoE at capacity
+     factor = n_experts, then finite at its own), each freed before the
+     next; (c) step 4 of `examples/serve_retrieval.py` with gemma-2b:
+     32,768 user and 4,096 item sequences of 16 tokens encoded 512 at a
+     time, the engine built (K2), 16 items queried (K1) and graded (K3),
+     each kernel's launches counted exactly in that window; then K1 (B =
+     1), K2 and K3 against their plain versions at d = 2,048, timed
+     beside their bounds (rows `...[d=2048]` of the kernels line).
 
 `--digests SRC` runs only phase 4's data, its f32 build, K3 grading,
 phase 4c's reordered f32 engine and the storage tier's tables with the
@@ -3593,6 +3609,343 @@ def entry_point_checks(dev, *, n=N, m=M, d=D, tau=TAU,
 
 
 # ------------------------------------------------------------ main path
+# ----------------------------------------------------- phase 10: the LM
+LM_SEED = 29                       # phase 10's parameters and tokens
+LM_PREFILL = (8, 2048)             # (a): prompts, tokens each (> chunk)
+LM_DECODE = 32                     # (a): greedy tokens after the forced ones
+LM_FORCED = 64                     # teacher-forced tokens held to prefill
+LM_SHORT = (2, 64)                 # (b): prompts, tokens each
+LM_AGREE = 0.8                     # argmax agreement, the reference's
+#                                    tests/test_models_smoke.py criterion
+STEP4 = dict(n_users=32_768, n_items=4_096, batch=512)
+STEP4_QUERIES = 16
+
+
+def lm_sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def lm_memory_start(torch, dev) -> float:
+    """Reset the peak; → the GB held before a step (0 on the CPU)."""
+    if dev.type != "cuda":
+        return 0.0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev) / 1e9
+
+
+def lm_peak(torch, dev, held: float) -> str:
+    if dev.type != "cuda":
+        return "peak not measured (CPU)"
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    return (f"peak {peak:.2f} GB, {peak - held:.2f} above the {held:.2f} "
+            f"held before it")
+
+
+def lm_forced(torch, T, params, cfg, tokens, want, cache_len, enc=None):
+    """Teacher-forced decode of tokens[:, :F] through a fresh cache of
+    `cache_len` slots, held to the prefill logits `want` (B, F, V) f32:
+    → (argmax agreement, largest |logit difference|, the cache, the
+    last step's logits)."""
+    B, F_ = want.shape[:2]
+    cache = T.init_cache(cfg, B, cache_len, tokens.device)
+    if enc is not None:
+        cache = T.fill_cross_kv(params, cache, enc, cfg)
+    same = torch.zeros((), dtype=torch.int64, device=tokens.device)
+    diff = torch.zeros((), device=tokens.device)
+    finite = torch.ones((), dtype=torch.bool, device=tokens.device)
+    for t in range(F_):
+        lg, cache = T.decode_step(params, cache, tokens[:, t:t + 1], cfg)
+        lg = lg[:, 0].float()
+        same += (lg.argmax(-1) == want[:, t].argmax(-1)).sum()
+        diff = torch.maximum(diff, (lg - want[:, t]).abs().max())
+        finite &= torch.isfinite(lg).all()
+    check(bool(finite), f"{cfg.name}: non-finite decode logits")
+    return int(same) / (B * F_), float(diff), cache, lg
+
+
+def lm_arch(torch, T, cfg, dev, g, *, batch, seq, forced, label):
+    """Prefill of `batch` random prompts of `seq` tokens and the
+    teacher-forced decode of their first `forced` tokens (MoE with no
+    capacity drops, then a prefill at the config's own capacity factor,
+    finite), each printed; frees the model."""
+    import dataclasses
+    held = lm_memory_start(torch, dev)
+    t0 = time.perf_counter()
+    params = T.init_params(g, cfg, dev)
+    n_params = sum(t.numel() for t in T.leaves(params))
+    tokens = torch.randint(cfg.vocab, (batch, seq), generator=g, device=dev)
+    frames = enc = None
+    if cfg.family == "encdec":
+        frames = torch.randn((batch, cfg.enc_seq, cfg.d_model), generator=g,
+                             device=dev)
+    lm_sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    check_cfg = cfg
+    if cfg.family == "moe":
+        check_cfg = dataclasses.replace(cfg, capacity_factor=float(
+            cfg.n_experts))
+    t0 = time.perf_counter()
+    logits = T.forward_logits(params, tokens, check_cfg, frames=frames)
+    lm_sync(torch, dev)
+    prefill_s = time.perf_counter() - t0
+    check(logits.shape == (batch, seq, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{label}: prefill logits of shape {tuple(logits.shape)}, or "
+          "not finite")
+    want = logits[:, :forced].float()
+    del logits
+    if frames is not None:
+        enc = T.encode(params, frames, cfg)
+    agree, diff, cache, _ = lm_forced(torch, T, params, check_cfg, tokens,
+                                      want, seq + 2, enc)
+    del cache, want
+    check(agree >= LM_AGREE, f"{label}: argmax agreement of decode with "
+          f"prefill {agree:.3f} < {LM_AGREE}")
+    own = ""
+    if cfg.family == "moe":
+        lg = T.forward_logits(params, tokens, cfg, frames=frames)
+        check(bool(torch.isfinite(lg).all()), f"{label}: prefill at the "
+              f"capacity factor {cfg.capacity_factor} not finite")
+        own = f"; prefill at capacity factor {cfg.capacity_factor} finite"
+        del lg
+    peak = lm_peak(torch, dev, held)
+    del params, enc, frames
+    print(f"  (b) {label}: {cfg.n_layers} layers"
+          + (f" + {cfg.n_enc_layers} encoder" if cfg.family == "encdec"
+             else "")
+          + f" at d_model {cfg.d_model}, {n_params / 1e9:.3f} B parameters "
+          f"(init {init_s:.2f} s); prefill {batch} x {seq} {prefill_s:.3f} "
+          f"s; forced decode of {forced}: argmax agreement {agree:.4f}, "
+          f"largest |logit difference| {diff:.4g}{own}; {peak}")
+
+
+def lm_checks(dev, *, configs=None, prefill=LM_PREFILL, decode=LM_DECODE,
+              forced=LM_FORCED, short=LM_SHORT, step4=None,
+              queries=STEP4_QUERIES) -> dict:
+    """Phase 10: the LM substrate's serving path (`repro_torch.models`)
+    on `dev` (the card; the CPU for a rehearsal with `configs` reduced
+    and small sizes):
+
+      (a) gemma-2b at its published size (18 layers, d_model 2,048, 8
+          heads of 256, one kv head, d_ff 16,384, vocab 256,000, tied):
+          parameters from a seeded generator on the device, prefill of
+          `prefill` = (B, S) random prompts (S = 2,048 takes the
+          chunked attention), the teacher-forced decode of each prompt's
+          first `forced` tokens through a cache of S + `decode` slots
+          (argmax agreement with the prefill ≥ 0.8, the largest logit
+          difference), then `decode` greedy tokens; tokens/s of the
+          prefill, ms a decode step, peak memory;
+      (b) each other architecture at full width and `reduced_depth`:
+          prefill of `short` and the same teacher-forced check (MoE at
+          capacity factor = n_experts, then finite at its own), each
+          model freed before the next;
+      (c) step 4 of `examples/serve_retrieval.py` with gemma-2b drawn
+          again: `step4` = n_users / n_items sequences of 16 tokens, encoded
+          `batch` at a time, the rank table built (K2), `queries` items
+          answered one at a time (K1) and graded (K3, two launches a
+          query); the launches of K1, K2 and K3 counted in that window,
+          exactly.
+
+    Returns the checks passed and (c)'s data for the kernel checks at
+    d_model."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config, reduced_depth
+    from repro_torch.core import exact as exact_mod
+    from repro_torch.core import metrics
+    from repro_torch.examples import serve_retrieval as SR
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    cuda = dev.type == "cuda"
+    if configs is None:
+        configs = {a: (get_config(a) if a == "gemma-2b"
+                       else reduced_depth(get_config(a))) for a in ARCH_IDS}
+    step4 = dict(STEP4, **(step4 or {}))
+    g = torch.Generator(device=dev)
+    g.manual_seed(LM_SEED)
+    checks = []
+
+    # (a) gemma-2b at its published size
+    cfg = configs["gemma-2b"]
+    B, S = prefill
+    held = lm_memory_start(torch, dev)
+    t0 = time.perf_counter()
+    params = T.init_params(g, cfg, dev)
+    lm_sync(torch, dev)
+    n_params = sum(t.numel() for t in T.leaves(params))
+    print(f"  (a) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.hd}, {cfg.n_kv_heads} kv head, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}: {n_params:,} f32 "
+          f"parameters in {time.perf_counter() - t0:.2f} s")
+    prompts = torch.randint(cfg.vocab, (B, S), generator=g, device=dev)
+    T.forward_logits(params, prompts[:1, :forced], cfg)   # library set-up
+    lm_sync(torch, dev)
+    t0 = time.perf_counter()
+    logits = T.forward_logits(params, prompts, cfg)
+    lm_sync(torch, dev)
+    prefill_s = time.perf_counter() - t0
+    check(logits.shape == (B, S, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          "(a) prefill logits of the wrong shape, or not finite")
+    want = logits[:, :forced].float()
+    del logits
+    agree, diff, cache, last = lm_forced(torch, T, params, cfg, prompts,
+                                         want, S + decode)
+    del want
+    check(agree >= LM_AGREE, f"(a) argmax agreement of decode with prefill "
+          f"{agree:.4f} < {LM_AGREE}")
+    tok = last.argmax(-1, keepdim=True)
+    out_tokens = []
+    lm_sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(decode):
+        lg, cache = T.decode_step(params, cache, tok, cfg)
+        tok = lg[:, 0].float().argmax(-1, keepdim=True)
+        out_tokens.append(tok)
+    lm_sync(torch, dev)
+    step_ms = (time.perf_counter() - t0) * 1e3 / decode
+    gen = torch.cat(out_tokens, 1)
+    check(cache["len"] == forced + decode and bool(
+        ((gen >= 0) & (gen < cfg.vocab)).all()),
+          "(a) greedy decode: cache length or tokens out of range")
+    del cache, gen, out_tokens
+    peak = lm_peak(torch, dev, held)
+    print(f"  (a) prefill {B} x {S}: {prefill_s:.3f} s, "
+          f"{B * S / prefill_s:,.0f} tokens/s; forced decode of {forced} "
+          f"(cache {S + decode}): argmax agreement {agree:.4f}, largest "
+          f"|logit difference| {diff:.4g}; greedy decode {decode} tokens: "
+          f"{step_ms:.2f} ms a step of {B} ({step_ms / B:.3f} ms a token); "
+          f"{peak}")
+    checks.append("a")
+
+    # (b) the other architectures at full width, reduced depth; (c) draws
+    # gemma-2b again
+    del params
+    for arch, acfg in configs.items():
+        if arch != "gemma-2b":
+            lm_arch(torch, T, acfg, dev, g, batch=short[0], seq=short[1],
+                    forced=forced, label=arch)
+    checks.append("b")
+
+    # (c) step 4 of serve_retrieval with gemma-2b
+    held = lm_memory_start(torch, dev)
+    params = T.init_params(g, cfg, dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = SR.backbone_step(dev, cfg=cfg, params=params, **step4)
+    users, items, eng = out["users"], out["items"], out["engine"]
+    del params
+    gq = torch.Generator(device=dev)
+    gq.manual_seed(LM_SEED + 1)
+    qids = torch.randperm(items.shape[0], generator=gq,
+                          device=dev)[:queries].tolist()
+    lm_sync(torch, dev)
+    t1 = time.perf_counter()
+    res = [eng.query(items[j], SR.SEQ_K, SR.SEQ_C) for j in qids]
+    lm_sync(torch, dev)
+    query_ms = (time.perf_counter() - t1) * 1e3 / queries
+    accs, ratios = [], []
+    for j, r in zip(qids, res):
+        truth = exact_mod.exact_ranks(users, items, items[j])
+        ex_idx, _ = exact_mod.reverse_k_ranks(users, items, items[j],
+                                              SR.SEQ_K)
+        got, ex, tr = (x.cpu().numpy() for x in (r.indices, ex_idx, truth))
+        accs.append(metrics.accuracy(got, ex, tr, SR.SEQ_C))
+        ratios.append(metrics.overall_ratio(got, ex, tr))
+    lm_sync(torch, dev)
+    counts = dict(ops.LAUNCHES)
+    wall_c = time.perf_counter() - t0
+    mean = lambda xs: sum(xs) / len(xs)
+    for a, r in zip(accs, ratios):
+        check(0.0 <= a <= 1.0 and r >= 1.0 and r == r,
+              "(c) §5 metrics out of range")
+    check(users.shape == (step4["n_users"], cfg.d_model)
+          and items.shape == (step4["n_items"], cfg.d_model)
+          and users.dtype == torch.float32
+          and bool(torch.isfinite(users).all())
+          and bool(torch.isfinite(items).all()),
+          "(c) embeddings of the wrong shape or type, or not finite")
+    if cuda:
+        want_counts = {"k2_table_build": 1, "k1_bound_ranks": queries + 1,
+                       "k3_exact_ranks": 2 * queries}
+        got_counts = {k: v for k, v in counts.items() if v}
+        check(got_counts == want_counts, f"(c) launches {got_counts}, "
+              f"expected {want_counts}")
+    print(f"  (c) step 4, {cfg.name} at d_model {cfg.d_model}: "
+          f"{step4['n_users']} user and {step4['n_items']} item sequences "
+          f"of {SR.SEQ_LEN} tokens, {step4['batch']} a batch: encode "
+          f"{out['encode_s']:.2f} s, build {out['build_s']:.3f} s (tau "
+          f"{SR.BACKBONE_TABLE.tau}, omega {SR.BACKBONE_TABLE.omega}, s "
+          f"{SR.BACKBONE_TABLE.s}); {queries} queries (k={SR.SEQ_K}, "
+          f"c={SR.SEQ_C}) {query_ms:.2f} ms each; §5 accuracy "
+          f"{mean(accs):.4f}, overall ratio {mean(ratios):.4f}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; {wall_c:.1f} s; "
+          f"{lm_peak(torch, dev, held)}")
+    checks.append("c")
+    return {"checks": checks, "c": {"users": users, "items": items,
+                                    "engine": eng, "qids": qids,
+                                    "counts": counts}}
+
+
+def lm_kernel_rows(torch, ops, ref, query_mod, c4) -> list:
+    """Phase 10's kernels at gemma-2b's width: K1 (B = 1), K2 and K3 on
+    step 4's embeddings, table and samples (`lm_checks`' (c) data `c4`),
+    each against its plain version and timed beside its bound; their
+    launches are (c)'s window's. → the kernels line's records."""
+    src = "src/repro_torch/kernels/csrc/"
+    rows = []
+    u4, i4, eng4 = c4["users"], c4["items"], c4["engine"]
+    n4, d4 = u4.shape
+    m4 = i4.shape[0]
+    thr4, tab4 = eng4.rank_table.thresholds, eng4.rank_table.table
+    tau4 = thr4.shape[1]
+    base4 = eng4.current_snapshot().base
+    samples4, w4 = base4.samples, base4.weights
+    s4 = samples4.shape[0]
+    q4 = i4[c4["qids"][0]].contiguous()
+    label = f"step 4 n={n4} m={m4} d={d4}"
+    err = check_k1(torch, ops, ref, u4, q4[None], thr4, tab4, m4,
+                   f"{label} B=1")
+    ms = time_ms(torch, lambda: ops.bound_ranks_batched(
+        u4, q4[None], thr4, tab4, m=m4), reps=20)
+    pms = time_ms(torch, lambda: ref.ref_bound_ranks(
+        u4, q4[None], thr4, tab4, m4), reps=5)
+    idx = query_mod._bucketize(thr4, u4 @ q4[:, None])
+    need = (4 * (n4 * d4 + d4) + n4 * search_bytes(4 * tau4, 1)
+            + gather_bytes(torch, idx, tau4, 4) + 12 * n4)
+    del idx
+    rows.append(kernel_record(
+        f"k1_bound_ranks[B=1,d={d4}]", "src/repro/kernels/user_scores.py:57",
+        c4["counts"]["k1_bound_ranks"], err, ms, pms, need,
+        2 * n4 * d4 + n4 * math.ceil(math.log2(tau4)),
+        src + "user_scores.cu"))
+    table4, err = check_k2(torch, ops, ref, u4, samples4, w4, thr4, label)
+    check(torch.equal(table4, tab4), f"K2 {label}: a second launch differs "
+          "from the build's table")
+    del table4
+    ms = time_ms(torch, lambda: ops.build_table_rows(u4, samples4, w4, thr4),
+                 reps=5)
+    pms = time_ms(torch, lambda: ref.ref_table_rows(u4, samples4, w4, thr4),
+                  reps=1)
+    rows.append(kernel_record(
+        f"k2_table_build[d={d4}]", "src/repro/kernels/table_build.py:28",
+        c4["counts"]["k2_table_build"], err, ms, pms,
+        4 * (n4 * d4 + s4 * d4 + s4 + 2 * n4 * tau4), 2 * n4 * s4 * d4,
+        src + "table_build.cu"))
+    _, nd, err = check_k3(torch, ops, ref, u4, i4, q4, label)
+    print(f"  K3 {label}: {nd} of {n4} ranks differ from the plain version, "
+          f"all explained; max abs err {err}")
+    ms = time_ms(torch, lambda: ops.exact_ranks(u4, i4, q4), reps=3)
+    pms = time_ms(torch, lambda: ref.ref_exact_counts(u4, i4, q4), reps=3)
+    rows.append(kernel_record(
+        f"k3_exact_ranks[d={d4}]", "src/repro/kernels/exact_rank.py:25",
+        c4["counts"]["k3_exact_ranks"], err, ms, pms,
+        4 * (n4 * d4 + m4 * d4 + d4 + n4), 2 * n4 * m4 * d4,
+        src + "exact_rank.cu"))
+    return rows
+
+
 def digests_of(torch, exact_mod, rt_mod, ReverseKRanksEngine,
                RankTableConfig, synthetic_embeddings, ops, query_mod,
                pruning, PrunedBackend):
@@ -3716,6 +4069,26 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernel_record(name, replaces, launches, err, ms, plain_ms, bound_bytes,
+                  bound_ops, source) -> dict:
+    """One kernel's entry of the kernels line, printed: its bound is the
+    larger of the bytes it must move over the HBM rate and its f32
+    operations over the f32 peak."""
+    t_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = bound_ops / FP32_FLOP_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    rec = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None}
+    print(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
+          f"{bound:.3f} ms by {rec['bound_by']}, "
+          f"{bound / ms * 100:.1f}% of bound), launches {launches}")
+    return rec
 
 
 def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
@@ -4593,21 +4966,8 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
     samples = items_sorted[pos].contiguous()
     out = []
 
-    def row(name, replaces, launches, err, ms, plain_ms, bound_bytes,
-            bound_ops, source):
-        t_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = bound_ops / FP32_FLOP_PER_S * 1e3
-        bound = max(t_bytes, t_ops)
-        rec = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": launches,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound,
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": None}
-        print(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
-              f"{bound:.3f} ms by {rec['bound_by']}, "
-              f"{bound / ms * 100:.1f}% of bound), launches {launches}")
-        out.append(rec)
+    def row(*args):
+        out.append(kernel_record(*args))
 
     src = "src/repro_torch/kernels/csrc/"
     for nb, replaces in ((B, "src/repro/kernels/user_scores.py:137"),
@@ -4951,6 +5311,26 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
           f"{time.perf_counter() - t0:.1f} s; {nvidia_smi_line()}")
     check(report9["checks"] == list("abcdef"),
           "phase 9 did not run every check")
+    del report9
+
+    # 10. the LM substrate's serving path, then step 4 of serve_retrieval
+    # and its kernels at gemma-2b's width
+    bf16_in_f32 = not (torch.backends.cuda.matmul.
+                       allow_bf16_reduced_precision_reduction)
+    print(f"phase: the LM substrate's serving path (gemma-2b at its "
+          f"published size, the other architectures at full width and "
+          f"reduced depth), step 4 of serve_retrieval; bf16 products "
+          f"reduce in f32: {bf16_in_f32}")
+    check(bf16_in_f32, "bf16 products may reduce in bf16")
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    report10 = lm_checks(dev)
+    check(report10["checks"] == list("abc"),
+          "phase 10 did not run every check")
+    out.extend(lm_kernel_rows(torch, ops, ref, query_mod, report10["c"]))
+    del report10
+    print(f"  phase 10: checks abc passed, {time.perf_counter() - t10:.1f} s; "
+          f"{nvidia_smi_line()}")
     return out
 
 

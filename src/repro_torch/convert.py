@@ -8,7 +8,9 @@ on a given device, so that both packages compute on the same state;
 `correction_from_reference`, `base_from_reference`,
 `delta_state_from_reference` and `snapshot_from_reference` for the
 mutable index (a snapshot's delta correction, sampling state and delta
-buffer).
+buffer). `model_params_from_reference` and `cache_from_reference` carry
+the LM substrate's parameters and decode caches across (the same nested
+dicts, leaf by leaf).
 
 Every array keeps its storage dtype: f32 stays f32, int8 codes stay
 int8, and bf16 travels as its 16-bit pattern. NumPy has no bf16 of its
@@ -30,6 +32,7 @@ from repro_torch.core.types import DeltaCorrection, RankTable, \
 from repro_torch.device import resolve_device
 from repro_torch.index.delta import BaseIndex, DeltaState
 from repro_torch.index.snapshot import IndexSnapshot
+from repro_torch.models.transformer import leaves
 
 
 class ReferenceState(NamedTuple):
@@ -171,3 +174,50 @@ def snapshot_from_reference(snap, art=None, *, device=None
         user_remap=(None if snap.user_remap is None
                     else np.array(snap.user_remap, dtype=np.int64)),
         stored_users=st.stored_users)
+
+
+def _tree(x, leaf):
+    if isinstance(x, dict):
+        return {k: _tree(v, leaf) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_tree(v, leaf) for v in x]
+    return leaf(x)
+
+
+def model_params_from_reference(tree, cfg, device=None) -> dict:
+    """The reference's LM parameters (its nested dict, any leaves
+    `numpy.asarray` accepts: stacked segments with their leading
+    `repeats` axis, `enc_*` for the enc-dec, `lm_head` only when the
+    embeddings are untied) as the port's f32 masters on `device`."""
+    dev = resolve_device(device)
+    want = {"embed", "segments", "final_norm"}
+    if not cfg.tie_embeddings:
+        want.add("lm_head")
+    if cfg.family == "encdec":
+        want |= {"enc_in", "enc_segments", "enc_norm"}
+    if set(tree) != want:
+        raise ValueError(f"parameter groups {sorted(tree)} are not "
+                         f"{sorted(want)} of {cfg.name}")
+    out = _tree(tree, lambda x: _f32(x, dev))
+    for key, segs in (("segments", cfg.segments()),
+                      ("enc_segments", cfg.enc_segments())):
+        if key not in out:
+            continue
+        if len(out[key]) != len(segs):
+            raise ValueError(f"{key}: {len(out[key])} segments, "
+                             f"{cfg.name} has {len(segs)}")
+        for seg, (pattern, repeats) in zip(out[key], segs):
+            leads = {t.shape[0] for t in leaves(seg)}
+            if sorted(seg) != [f"b{i}" for i in range(len(pattern))] \
+                    or leads != {repeats}:
+                raise ValueError(f"{key}: a segment is not {repeats} "
+                                 f"stacked layers of {pattern}")
+    return out
+
+
+def cache_from_reference(cache, device=None) -> dict:
+    """The reference's decode cache as the port's on `device`: each leaf
+    in its storage dtype (bf16 bit for bit, f32), `len` a Python int."""
+    dev = resolve_device(device)
+    return {"segments": _tree(cache["segments"], lambda x: _stored(x, dev)),
+            "len": int(np.asarray(cache["len"]))}

@@ -7,6 +7,8 @@ pass off the plain PyTorch path as the kernels' result.
 f32 means IEEE f32. A TF32 matmul moves a score by about 1e-3 relative,
 which flips bucketize indices at thresholds, so TF32 stays off for
 matmuls and convolutions and the matmul precision stays "highest".
+Products of bf16 operands (the LM substrate's) reduce in f32, as the
+reference's do: cuBLAS may not sum their split-K parts in bf16.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ def ieee_f32() -> None:
     """Keep every f32 product of the process in full IEEE f32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.set_float32_matmul_precision("highest")
 
 

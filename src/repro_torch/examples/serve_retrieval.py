@@ -1,15 +1,16 @@
 """Item-centric retrieval serving: the full paper pipeline — ratings →
 matrix factorization → rank-table index → ONLINE c-approximate reverse
-k-ranks serving → §5 metrics.
+k-ranks serving → §5 metrics, plus backbone-encoded embeddings to show
+the engine composes with the assigned architectures.
 
     python -m repro_torch.examples.serve_retrieval
 
-Counterpart of steps 1-3 of the reference's `examples/serve_retrieval.py`,
-on the CUDA card; `main(device="cpu", n_users=..., n_items=...,
-n_ratings=...)` runs it on the CPU at another size. The reference's step
-4 (backbone-encoded embeddings, to show that the engine composes with
-the assigned architectures) needs the LM substrate, whose port is ROADMAP
-queue 1 item 14; it is not here.
+Counterpart of the reference's `examples/serve_retrieval.py`, on the CUDA
+card; `main(device="cpu", n_users=..., n_items=..., n_ratings=...)` runs
+it on the CPU at another size. Step 4 encodes token sequences with
+gemma-2b (`backbone_embeddings`: the embedding and the layer stack,
+mean-pooled, as f32) and indexes them (`backbone_step`): at the published
+width on the card, at `reduced()` widths on the CPU.
 
 Serving model (repro_torch.serve): queries arrive one at a time and are
 `submit()`-ed to a MicroBatcher, which coalesces them into max_batch-
@@ -24,6 +25,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config, reduced
 from repro_torch.core import metrics
 from repro_torch.core.engine import ReverseKRanksEngine
 from repro_torch.core.exact import exact_ranks, reverse_k_ranks
@@ -31,7 +33,84 @@ from repro_torch.core.types import RankTableConfig
 from repro_torch.data.mf import MFConfig, embeddings, train_mf
 from repro_torch.data.pipeline import synthetic_ratings
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
 from repro_torch.serve import MicroBatcher
+
+# step 4: the reference's backbone, index and query
+BACKBONE = "gemma-2b"
+BACKBONE_TABLE = RankTableConfig(tau=64, omega=4, s=16)
+SEQ_USERS, SEQ_ITEMS, SEQ_LEN = 256, 128, 16
+SEQ_K, SEQ_C, SEQ_ITEM = 5, 2.0, 7
+
+
+def backbone_config(dev: torch.device) -> ModelConfig:
+    """gemma-2b at its published size on the card, `reduced` on the CPU."""
+    cfg = get_config(BACKBONE)
+    return cfg if dev.type == "cuda" else reduced(cfg)
+
+
+def backbone_embeddings(params: dict, cfg: ModelConfig,
+                        tokens: torch.Tensor, *,
+                        batch: int = 512) -> torch.Tensor:
+    """(N, S) token sequences → (N, d_model) f32 embeddings: the token
+    embedding and every layer (no final norm), mean-pooled over the
+    sequence in cfg.dtype, encoded `batch` sequences at a time."""
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    out = []
+    with torch.no_grad():
+        for i in range(0, tokens.shape[0], batch):
+            x = T._embed(params, tokens[i:i + batch], cfg)
+            x = T._apply_segments(params["segments"], cfg.segments(), x,
+                                  cfg, positions)
+            out.append(x.mean(dim=1).float())
+    return torch.cat(out)
+
+
+def backbone_step(dev: torch.device, *, cfg: ModelConfig = None,
+                  params: dict = None, tok_u: torch.Tensor = None,
+                  tok_i: torch.Tensor = None, n_users: int = SEQ_USERS,
+                  n_items: int = SEQ_ITEMS, batch: int = 512,
+                  positions=None, weights=None) -> dict:
+    """Step 4: random user and item token sequences of SEQ_LEN tokens
+    (seeds 4, 5) through the backbone (parameters from seed 3 unless
+    given), a rank table over the embeddings (samples from seed 6 unless
+    `positions` / `weights` are given) on the fused backend (K2 builds
+    it, K1 answers on the card; the reference's dense backend gives the
+    same answer), and the reverse SEQ_K-ranks of item SEQ_ITEM. Returns
+    the embeddings, the engine, the result and the encode and build
+    seconds."""
+    cfg = cfg or backbone_config(dev)
+    if params is None:
+        params = T.init_params(3, cfg, dev)
+    draws = []
+    for seed, n, given in ((4, n_users, tok_u), (5, n_items, tok_i)):
+        if given is None:
+            g = torch.Generator(device=dev)
+            g.manual_seed(seed)
+            given = torch.randint(cfg.vocab, (n, SEQ_LEN), generator=g,
+                                  device=dev)
+        draws.append(given.to(dev))
+    t0 = time.perf_counter()
+    u_emb = backbone_embeddings(params, cfg, draws[0], batch=batch)
+    i_emb = backbone_embeddings(params, cfg, draws[1], batch=batch)
+    _sync(dev)
+    t1 = time.perf_counter()
+    eng = ReverseKRanksEngine.build(u_emb, i_emb, BACKBONE_TABLE, 6,
+                                    backend="fused", device=dev,
+                                    positions=positions, weights=weights)
+    _sync(dev)
+    t2 = time.perf_counter()
+    res = eng.query(i_emb[SEQ_ITEM], k=SEQ_K, c=SEQ_C)
+    print(f"backbone-embedded reverse {SEQ_K}-ranks for item {SEQ_ITEM} → "
+          f"users {res.indices.tolist()} (engine composes with any arch)")
+    return {"users": u_emb, "items": i_emb, "engine": eng, "result": res,
+            "encode_s": t1 - t0, "build_s": t2 - t1}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def main(*, device=None, n_users: int = 6_000, n_items: int = 2_500,
@@ -72,8 +151,7 @@ def main(*, device=None, n_users: int = 6_000, n_items: int = 2_500,
     # micro-batched dispatch path, not 16 LRU hits of the warm-up's
     # results.
     eng.query_batch(qs * (1.0 + 1e-6), k=k, c=c)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)     # before the MicroBatcher starts
+    _sync(dev)                          # before the MicroBatcher starts
     qs_host = qs.cpu().numpy()
     with MicroBatcher(eng, max_batch=16, max_wait_ms=2.0) as mb:
         t0 = time.time()
@@ -92,6 +170,9 @@ def main(*, device=None, n_users: int = 6_000, n_items: int = 2_500,
         accs.append(metrics.accuracy(got, ex_idx, truth, c))
         ratios.append(metrics.overall_ratio(got, ex_idx, truth))
     print(f"accuracy {np.mean(accs):.3f}  overall-ratio {np.mean(ratios):.3f}")
+
+    # --- 4. backbone-encoded embeddings (engine ∘ assigned architecture) --
+    backbone_step(dev)
     return {"losses": losses, "accuracy": float(np.mean(accs)),
             "overall_ratio": float(np.mean(ratios))}
 

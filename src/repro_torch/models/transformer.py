@@ -1,0 +1,334 @@
+"""Backbone assembly: stacked layer segments for all 10 architectures.
+
+Counterpart of the reference's `models/transformer.py` on its serving
+path. Parameters and caches are plain nested dicts of tensors in the
+reference's layout: layers are stacked per `cfg.segments()` (see
+ModelConfig), each segment holding its pattern's blocks with a leading
+`repeats` axis, and a forward pass loops over the repeats, taking each
+layer's slice as a view.
+
+Public surface:
+  init_params(generator, cfg, device)  — f32 master parameters
+  forward_hidden / forward_logits      — prefill hidden states / logits
+  encode(params, frames)               — enc-dec encoder (whisper stub input)
+  init_cache / fill_cross_kv / decode_step — one-token serving with caches
+
+Not here yet: `lm_loss` and its chunked cross-entropy (training).
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
+from repro_torch.models.config import ModelConfig
+
+
+def _norm(cfg):
+    return L.layer_norm if cfg.family == "encdec" else L.rms_norm
+
+
+# ------------------------------------------------------------------ blocks
+def _init_block(block: str, g, cfg: ModelConfig, lead, dev) -> dict:
+    d = cfg.d_model
+    if block in ("attn_mlp", "local_attn", "enc_block"):
+        return {"ln1": L.init_norm(d, lead, dev),
+                "attn": L.init_attention(g, cfg, lead, dev),
+                "ln2": L.init_norm(d, lead, dev),
+                "mlp": L.init_mlp(g, cfg, lead=lead, dev=dev)}
+    if block == "attn_moe":
+        return {"ln1": L.init_norm(d, lead, dev),
+                "attn": L.init_attention(g, cfg, lead, dev),
+                "ln2": L.init_norm(d, lead, dev),
+                "moe": L.init_moe(g, cfg, lead, dev)}
+    if block == "rwkv":
+        return {"ln1": L.init_norm(d, lead, dev),
+                "tmix": R.init_rwkv_tmix(g, cfg, lead, dev),
+                "ln2": L.init_norm(d, lead, dev),
+                "cmix": R.init_rwkv_cmix(g, cfg, lead, dev)}
+    if block == "rglru":
+        return {"ln1": L.init_norm(d, lead, dev),
+                "rglru": R.init_rglru_block(g, cfg, lead, dev),
+                "ln2": L.init_norm(d, lead, dev),
+                "mlp": L.init_mlp(g, cfg, lead=lead, dev=dev)}
+    if block == "dec_block":
+        return {"ln1": L.init_norm(d, lead, dev),
+                "attn": L.init_attention(g, cfg, lead, dev),
+                "lnx": L.init_norm(d, lead, dev),
+                "xattn": L.init_attention(g, cfg, lead, dev),
+                "ln2": L.init_norm(d, lead, dev),
+                "mlp": L.init_mlp(g, cfg, lead=lead, dev=dev)}
+    raise ValueError(f"unknown block {block!r}")
+
+
+def _apply_block(block: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions, *, enc_kv=None) -> torch.Tensor:
+    """Full-sequence (prefill) application of one block."""
+    norm = _norm(cfg)
+    if block in ("attn_mlp", "attn_moe", "local_attn"):
+        window = cfg.local_window if block == "local_attn" else None
+        x = x + L.attention(p["attn"], norm(p["ln1"], x, cfg.norm_eps), cfg,
+                            positions, causal=True, window=window)
+        h = norm(p["ln2"], x, cfg.norm_eps)
+        ff = L.moe(p["moe"], h, cfg) if block == "attn_moe" else \
+            L.mlp(p["mlp"], h, cfg)
+        return x + ff
+    if block == "rwkv":
+        x = x + R.rwkv_tmix(p["tmix"], norm(p["ln1"], x, cfg.norm_eps), cfg)
+        return x + R.rwkv_cmix(p["cmix"], norm(p["ln2"], x, cfg.norm_eps),
+                               cfg)
+    if block == "rglru":
+        x = x + R.rglru_block(p["rglru"], norm(p["ln1"], x, cfg.norm_eps),
+                              cfg)
+        return x + L.mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_eps), cfg)
+    if block == "enc_block":
+        x = x + L.attention(p["attn"], norm(p["ln1"], x, cfg.norm_eps), cfg,
+                            None, causal=False, use_rope=False)
+        return x + L.mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_eps), cfg)
+    if block == "dec_block":
+        x = x + L.attention(p["attn"], norm(p["ln1"], x, cfg.norm_eps), cfg,
+                            None, causal=True, use_rope=False)
+        # enc_kv carries the raw encoder output; each decoder layer projects
+        # it with its own wk/wv (whisper-style per-layer cross attention).
+        ek, ev = L.encoder_kv(p["xattn"], enc_kv, cfg)
+        x = x + L.cross_attention(p["xattn"], norm(p["lnx"], x,
+                                                   cfg.norm_eps), cfg, ek, ev)
+        return x + L.mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_eps), cfg)
+    raise ValueError(f"unknown block {block!r}")
+
+
+# ---------------------------------------------------------------- stacking
+def layer(tree, r: int):
+    """Layer r of a stacked segment: every leaf's slice r (views)."""
+    if isinstance(tree, dict):
+        return {k: layer(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def leaves(tree):
+    """Every tensor of a parameter or cache tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def _init_segment(g, pattern, repeats, cfg, dev) -> dict:
+    return {f"b{i}": _init_block(b, g, cfg, (repeats,), dev)
+            for i, b in enumerate(pattern)}
+
+
+def _apply_segments(params_segs, segments, x, cfg, positions, *,
+                    enc_kv=None) -> torch.Tensor:
+    for seg_params, (pattern, repeats) in zip(params_segs, segments):
+        for r in range(repeats):
+            layer_p = layer(seg_params, r)
+            for i, b in enumerate(pattern):
+                x = _apply_block(b, layer_p[f"b{i}"], x, cfg, positions,
+                                 enc_kv=enc_kv)
+    return x
+
+
+# ------------------------------------------------------------------ params
+def init_params(generator: Union[int, torch.Generator], cfg: ModelConfig,
+                device=None) -> dict:
+    """Random f32 master parameters on `device` (the CUDA card unless the
+    caller passes device='cpu'), drawn from `generator` (a seed or a
+    torch.Generator on that device). The reference's `jax.random` draws
+    cannot be matched: to compute on the reference's parameters, carry
+    them across with `repro_torch.convert.model_params_from_reference`."""
+    dev = resolve_device(device)
+    g = generator
+    if isinstance(g, int):
+        g = torch.Generator(device=dev)
+        g.manual_seed(generator)
+    d = cfg.d_model
+    p = {"embed": {"tok": L._normal(g, (cfg.vocab, d), 0.02, dev)}}
+    p["segments"] = [_init_segment(g, pattern, repeats, cfg, dev)
+                     for pattern, repeats in cfg.segments()]
+    p["final_norm"] = L.init_norm(d, dev=dev)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = {"w": L._normal(g, (d, cfg.vocab), d ** -0.5, dev)}
+    if cfg.family == "encdec":
+        p["enc_in"] = {"w": L._normal(g, (d, d), d ** -0.5, dev)}
+        p["enc_segments"] = [_init_segment(g, pattern, repeats, cfg, dev)
+                             for pattern, repeats in cfg.enc_segments()]
+        p["enc_norm"] = L.init_norm(d, dev=dev)
+    return p
+
+
+# ----------------------------------------------------------------- forward
+def encode(params: dict, frames: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """Whisper encoder over stub frame embeddings (B, enc_seq, D)."""
+    dt = L.cdtype(cfg)
+    x = frames.to(dt) @ params["enc_in"]["w"].to(dt)
+    x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                   x.device).to(dt)
+    x = _apply_segments(params["enc_segments"], cfg.enc_segments(), x, cfg,
+                        None)
+    return L.layer_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _embed(params, tokens, cfg, pos_offset: int = 0) -> torch.Tensor:
+    dt = L.cdtype(cfg)
+    x = params["embed"]["tok"][tokens].to(dt)
+    if cfg.family == "encdec":
+        # absolute (sinusoidal) decoder positions; decode offsets by the
+        # cache length so step t uses position t, not 0.
+        x = x + L.sinusoidal_positions(tokens.shape[1], cfg.d_model,
+                                       x.device, offset=pos_offset).to(dt)
+    return x
+
+
+def _logits(params, x, cfg) -> torch.Tensor:
+    head = params["embed"]["tok"].T if cfg.tie_embeddings else \
+        params["lm_head"]["w"]
+    return x @ head.to(x.dtype)
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+                   frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Final normed hidden states (B, S, D)."""
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    enc_kv = None
+    if cfg.family == "encdec":
+        # raw encoder output; each decoder block projects it with its own
+        # wk/wv (whisper-style per-layer cross attention)
+        enc_kv = encode(params, frames, cfg)
+    x = _apply_segments(params["segments"], cfg.segments(), x, cfg,
+                        positions, enc_kv=enc_kv)
+    return _norm(cfg)(params["final_norm"], x, cfg.norm_eps)
+
+
+def forward_logits(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+                   frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence logits (prefill). tokens: (B, S) integer."""
+    return _logits(params, forward_hidden(params, tokens, cfg,
+                                          frames=frames), cfg)
+
+
+# ------------------------------------------------------------------ decode
+def _init_block_cache(block: str, batch: int, cache_len: int,
+                      cfg: ModelConfig, dt, lead, dev) -> dict:
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    z = lambda *shape, dtype=dt: torch.zeros((*lead, *shape), dtype=dtype,
+                                             device=dev)
+    if block in ("attn_mlp", "attn_moe", "enc_block"):
+        return {"k": z(batch, cache_len, kv, hd),
+                "v": z(batch, cache_len, kv, hd)}
+    if block == "dec_block":
+        # self-attn KV plus per-layer cross-attention KV over encoder frames
+        return {"k": z(batch, cache_len, kv, hd),
+                "v": z(batch, cache_len, kv, hd),
+                "xk": z(batch, cfg.enc_seq, kv, hd),
+                "xv": z(batch, cfg.enc_seq, kv, hd)}
+    if block == "local_attn":
+        T = min(cache_len, cfg.local_window)
+        return {"k": z(batch, T, kv, hd), "v": z(batch, T, kv, hd)}
+    if block == "rwkv":
+        return {"s": z(batch, cfg.n_heads, hd, hd, dtype=torch.float32),
+                "xt": z(batch, cfg.d_model), "xc": z(batch, cfg.d_model)}
+    if block == "rglru":
+        return {"h": z(batch, cfg.lru_width, dtype=torch.float32),
+                "conv": z(batch, cfg.conv_width - 1, cfg.lru_width)}
+    raise ValueError(block)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device=None) -> dict:
+    """Decode cache mirroring the segment structure (each leaf with the
+    leading `repeats` axis), plus `len`, the tokens written so far."""
+    dev = resolve_device(device)
+    dt = L.cdtype(cfg)
+    segs = [{f"b{i}": _init_block_cache(b, batch, cache_len, cfg, dt,
+                                        (repeats,), dev)
+             for i, b in enumerate(pattern)}
+            for pattern, repeats in cfg.segments()]
+    return {"segments": segs, "len": 0}
+
+
+def fill_cross_kv(params: dict, cache: dict, enc_out: torch.Tensor,
+                  cfg: ModelConfig) -> dict:
+    """Project encoder output into every decoder layer's cross-KV cache
+    (run once per request before decoding), in place."""
+    for seg_params, seg_cache, (pattern, repeats) in zip(
+            params["segments"], cache["segments"], cfg.segments()):
+        for i, b in enumerate(pattern):
+            if b != "dec_block":
+                continue
+            c = seg_cache[f"b{i}"]
+            for r in range(repeats):
+                k, v = L.encoder_kv(layer(seg_params[f"b{i}"]["xattn"], r),
+                                    enc_out, cfg)
+                c["xk"][r] = k.to(c["xk"].dtype)
+                c["xv"][r] = v.to(c["xv"].dtype)
+    return cache
+
+
+def _decode_block(block: str, p: dict, x: torch.Tensor, cfg, cache: dict,
+                  cache_len: int) -> torch.Tensor:
+    """One block of one decode step; its cache slice is updated in
+    place."""
+    norm = _norm(cfg)
+    if block in ("attn_mlp", "attn_moe", "local_attn", "dec_block"):
+        h = norm(p["ln1"], x, cfg.norm_eps)
+        out, _, _ = L.attention_decode(
+            p["attn"], h, cfg, cache["k"], cache["v"], cache_len,
+            use_rope=(cfg.family != "encdec"))
+        x = x + out
+        if block == "dec_block":
+            x = x + L.cross_attention(
+                p["xattn"], norm(p["lnx"], x, cfg.norm_eps), cfg,
+                cache["xk"], cache["xv"])
+        h2 = norm(p["ln2"], x, cfg.norm_eps)
+        ff = L.moe(p["moe"], h2, cfg) if block == "attn_moe" else \
+            L.mlp(p["mlp"], h2, cfg)
+        return x + ff
+    if block == "rwkv":
+        h = norm(p["ln1"], x, cfg.norm_eps)
+        out, s_new, xt_new = R.rwkv_tmix_decode(p["tmix"], h, cfg,
+                                                cache["s"], cache["xt"])
+        x = x + out
+        h2 = norm(p["ln2"], x, cfg.norm_eps)
+        out2 = R.rwkv_cmix(p["cmix"], h2, cfg, x_prev=cache["xc"])
+        cache["s"].copy_(s_new)
+        cache["xt"].copy_(xt_new)
+        cache["xc"].copy_(h2[:, 0])
+        return x + out2
+    if block == "rglru":
+        h = norm(p["ln1"], x, cfg.norm_eps)
+        out, st = R.rglru_decode(p["rglru"], h, cfg, cache)
+        cache["h"].copy_(st["h"])
+        cache["conv"].copy_(st["conv"])
+        x = x + out
+        return x + L.mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_eps), cfg)
+    raise ValueError(block)
+
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
+                cfg: ModelConfig):
+    """One serving step: tokens (B, 1) → (logits (B,1,V), cache).
+
+    Each layer's cache slice is updated in place; the returned cache
+    shares the tensors of the one given, with `len` advanced by one (the
+    one given keeps its old `len` and must not be decoded from again).
+    """
+    cache_len = cache["len"]
+    x = _embed(params, tokens, cfg, pos_offset=cache_len)
+    for seg_params, seg_cache, (pattern, repeats) in zip(
+            params["segments"], cache["segments"], cfg.segments()):
+        for r in range(repeats):
+            layer_p, layer_c = layer(seg_params, r), layer(seg_cache, r)
+            for i, b in enumerate(pattern):
+                x = _decode_block(b, layer_p[f"b{i}"], x, cfg,
+                                  layer_c[f"b{i}"], cache_len)
+    x = _norm(cfg)(params["final_norm"], x, cfg.norm_eps)
+    return _logits(params, x, cfg), dict(cache, len=cache_len + 1)

@@ -6,7 +6,11 @@ reference examples run at import). Here each runs at a small size on the
 CPU and must print the reference example's lines and grade its answers
 with the §5 metrics (accuracy in [0, 1], overall ratio finite and ≥ 1).
 The CLI-style runs under the import blocker are in
-tests/test_torch_imports.py.
+tests/test_torch_imports.py. Step 4 of `serve_retrieval` (backbone-
+encoded embeddings) is held against the reference's: its embeddings
+within the tolerance each case states, and, fed the reference's
+parameters, token sequences, sample positions and weights, its answer
+equal to the reference's.
 
 Hygiene: two intra-op threads; the MicroBatcher of `serve_retrieval` is
 closed by its `with` block.
@@ -112,6 +116,8 @@ def test_serve_retrieval_small(capsys):
     assert any(ln.startswith("served 16 queries in") and
                "(cached:dense backend)" in ln for ln in out)
     assert any(ln.startswith("accuracy ") for ln in out)
+    assert any(ln.startswith("backbone-embedded reverse 5-ranks for item 7 "
+                             "→ users [") for ln in out)
 
 
 def test_examples_need_a_card_or_cpu():
@@ -120,3 +126,94 @@ def test_examples_need_a_card_or_cpu():
     for main in (quickstart.main, ablation.main, serve_retrieval.main):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main()
+
+
+# ------------------------------------------------- step 4 of serve_retrieval
+def _reference_step4(dtype):
+    """The reference example's step 4 (its file runs at import, so its
+    lines are repeated here on the reference's functions): reduced
+    gemma-2b, parameters from PRNGKey(3), token sequences, embeddings."""
+    import dataclasses
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config, reduced
+    from repro.models import transformer as RT
+    cfg = dataclasses.replace(reduced(get_config("gemma-2b")), dtype=dtype)
+    params = RT.init_params(jax.random.PRNGKey(3), cfg)
+    tok_u = jax.random.randint(jax.random.PRNGKey(4), (96, 16), 0,
+                               cfg.vocab)
+    tok_i = jax.random.randint(jax.random.PRNGKey(5), (48, 16), 0,
+                               cfg.vocab)
+
+    def encode(tokens):
+        x = RT._embed(params, tokens, cfg)
+        x = RT._apply_segments(params["segments"], cfg.segments(), x, cfg,
+                               jnp.arange(tokens.shape[1]))
+        return x.mean(axis=1).astype(jnp.float32)
+
+    return cfg, params, tok_u, tok_i, encode(tok_u), encode(tok_i)
+
+
+def _port_step4_inputs(dtype, params, tok_u, tok_i):
+    import dataclasses
+    import jax
+    from repro_torch import convert
+    from repro_torch.configs import get_config, reduced
+    cfg = dataclasses.replace(reduced(get_config("gemma-2b")), dtype=dtype)
+    pp = convert.model_params_from_reference(
+        jax.tree.map(np.asarray, params), cfg, device="cpu")
+    return (cfg, pp, torch.from_numpy(np.array(tok_u)).long(),
+            torch.from_numpy(np.array(tok_i)).long())
+
+
+@pytest.mark.parametrize("dtype, tol", [("float32", 1e-5),
+                                        ("bfloat16", 2e-2)])
+def test_backbone_embeddings_match_the_reference(dtype, tol):
+    """float32 within 1e-5; the config's bf16 within 2e-2 (the mean of
+    16 bf16 activations, each within a few bf16 ulps of the
+    reference's)."""
+    _, params, tok_u, tok_i, u_ref, i_ref = _reference_step4(dtype)
+    cfg, pp, tu, ti = _port_step4_inputs(dtype, params, tok_u, tok_i)
+    for toks, want in ((tu, u_ref), (ti, i_ref)):
+        got = serve_retrieval.backbone_embeddings(pp, cfg, toks, batch=40)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                                   atol=tol)
+
+
+def test_backbone_step_answers_with_the_references_indices(capsys):
+    import dataclasses
+    import jax
+    from repro.core import ReverseKRanksEngine as RefEngine
+    from repro.core.rank_table import sampling_artifacts
+    from repro.core.types import RankTableConfig as RefConfig
+    _, params, tok_u, tok_i, u_ref, i_ref = _reference_step4("float32")
+    key = jax.random.PRNGKey(6)
+    ref_table = RefConfig(tau=64, omega=4, s=16)
+    eng = RefEngine.build(u_ref, i_ref, ref_table, key)
+    want = eng.query(i_ref[7], k=5, c=2.0)
+    art = sampling_artifacts(i_ref, ref_table, key)
+    cfg, pp, tu, ti = _port_step4_inputs("float32", params, tok_u, tok_i)
+    assert dataclasses.asdict(serve_retrieval.BACKBONE_TABLE) == \
+        dataclasses.asdict(ref_table)
+    out = serve_retrieval.backbone_step(
+        torch.device("cpu"), cfg=cfg, params=pp, tok_u=tu, tok_i=ti,
+        positions=torch.from_numpy(np.array(art.positions)).long(),
+        weights=torch.from_numpy(np.array(art.weights)))
+    assert out["result"].indices.tolist() == np.asarray(
+        want.indices).tolist()
+    assert out["engine"].backend_name == "fused"
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line == (f"backbone-embedded reverse 5-ranks for item 7 → users "
+                    f"{np.asarray(want.indices).tolist()} (engine composes "
+                    "with any arch)")
+
+
+def test_serve_retrieval_runs_step_4_reduced_on_the_cpu(capsys):
+    cfg = serve_retrieval.backbone_config(torch.device("cpu"))
+    assert cfg.name == "gemma-2b" and cfg.d_model == 64
+    out = serve_retrieval.backbone_step(torch.device("cpu"), n_users=64,
+                                        n_items=32)
+    assert out["users"].shape == (64, 64) and out["items"].shape == (32, 64)
+    assert len(out["result"].indices) == 5
+    assert "backbone-embedded reverse 5-ranks" in capsys.readouterr().out

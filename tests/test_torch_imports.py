@@ -4,7 +4,9 @@ the elastic and cached backends, spills and restores at every spec
 (`repro_torch.index.persist`), rebuilds in its maintenance loop and
 audits served queries (`repro_torch.obs.audit`), queries a sharded
 engine (directly and through `pruned:sharded`), runs the ring exact ranks
-and a QSRP query; its serving driver (`python -m
+and a QSRP query, prefills and decodes every architecture of the LM
+substrate (`repro_torch.models`, `repro_torch.configs`) and runs step 4
+of `serve_retrieval`; its serving driver (`python -m
 repro_torch.launch.serve`) and the examples run under the same blocker
 (`chip_smoke.run_blocked`); and its entry points never fall back to the
 CPU quietly."""
@@ -134,6 +136,30 @@ assert ring.shape == (1024,) and ring.dtype == torch.float32
 idx = build_qsrp_index(users, items, levels=8)
 got, ranks, _ = qsrp_query(idx, users, items, items[3], 5, 2.0)
 assert got.shape == (5,) and ranks.shape == (5,)
+from repro_torch.configs import ARCH_IDS, get_config, reduced
+from repro_torch.models import transformer as T
+from repro_torch.models.model import Model
+for arch in ARCH_IDS:
+    cfg = reduced(get_config(arch))
+    model = Model(cfg)
+    params = model.init_params(0, device="cpu")
+    toks = torch.randint(cfg.vocab, (1, 4))
+    frames = (torch.randn(1, cfg.enc_seq, cfg.d_model)
+              if cfg.family == "encdec" else None)
+    assert model.forward_logits(params, toks, frames).shape == (1, 4,
+                                                                cfg.vocab)
+    cache = model.init_cache(1, 6, device="cpu")
+    if frames is not None:
+        cache = T.fill_cross_kv(params, cache, T.encode(params, frames, cfg),
+                                cfg)
+    lg, cache = model.decode_step(params, cache, toks[:, :1])
+    assert lg.shape == (1, 1, cfg.vocab) and cache["len"] == 1
+import contextlib, io
+from repro_torch.examples import serve_retrieval
+with contextlib.redirect_stdout(io.StringIO()):     # its answer line
+    out = serve_retrieval.backbone_step(torch.device("cpu"), n_users=32,
+                                        n_items=16)
+assert len(out["result"].indices) == 5
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
 assert not bad, bad

@@ -210,6 +210,25 @@ def test_compiled_program_gauge_reads_the_elastic_counter():
     assert not math.isnan(g.value)
 
 
+def test_set_default_returns_the_registry_it_installs():
+    """`set_default` returns the NEW registry (the reference's API), so a
+    test that swaps the default keeps `get_default()` first. The pruned
+    telemetry case of tests/test_torch_pruning.py once restored the
+    return value, which left its private registry installed: on an xdist
+    worker that ran it before this file, the elastic gauge above was
+    missing from the default and read 0."""
+    old = obs.get_default()
+    new = obs.MetricsRegistry()
+    try:
+        assert obs.set_default(new) is new
+        assert obs.get_default() is new
+    finally:
+        obs.set_default(old)
+    assert obs.get_default() is old
+    assert old.gauge("query_compiled_programs").value == float(
+        elastic.compiled_program_count())
+
+
 # ---------------------------------------------------------------- auditor
 class _NoSnapshotEngine:
     """Engine stub with no `current_snapshot`: every sampled query is

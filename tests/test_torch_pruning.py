@@ -759,7 +759,11 @@ def test_pruned_spans_and_gauges_are_the_references(union_frac):
     eng._backend.max_union_frac = union_frac
     qs = (items[np.arange(4) * 29 % M] + 0.5).astype(np.float32)
     regs = (obs.MetricsRegistry(), ref_obs.MetricsRegistry())
-    olds = (obs.set_default(regs[0]), ref_obs.set_default(regs[1]))
+    # set_default returns the registry it installs, not the one it
+    # replaces: keep the defaults before swapping them
+    olds = (obs.get_default(), ref_obs.get_default())
+    obs.set_default(regs[0])
+    ref_obs.set_default(regs[1])
     spans = {}
     try:
         for name, tr, run in (
@@ -782,6 +786,8 @@ def test_pruned_spans_and_gauges_are_the_references(union_frac):
     finally:
         obs.set_default(olds[0])
         ref_obs.set_default(olds[1])
+    assert obs.get_default() is olds[0]
+    assert ref_obs.get_default() is olds[1]
     names = [s[0] for s in spans["port"]]
     want_names = ["prune.phase_a", "prune.phase_b", "prune.query"] * 2 \
         if union_frac else ["prune.phase_a", "prune.query"] * 2
