@@ -207,6 +207,25 @@ Phases, each fatal on failure (exit code 1, no result line):
      each kernel's launches counted exactly in that window; then K1 (B =
      1), K2 and K3 against their plain versions at d = 2,048, timed
      beside their bounds (rows `...[d=2048]` of the kernels line).
+  11. the LM substrate's training path (`train_checks`): (a) `python -m
+     repro_torch.launch.train --arch gemma-2b --full-config
+     --global-batch 2 --seq-len 2048 --steps 12` under the import
+     blocker (18 layers, d_model 2,048, vocab 256,000, remat "nothing",
+     bf16 compute params): exit 0, every loss and grad norm finite; the
+     loss of each step, s a step after the first, tokens/s, peak memory;
+     (b) gemma-2b at full width and 2 layers in this process, 2 x 2,048
+     tokens: the first step's loss against a plain f32 CE with the
+     z-loss over `forward_logits` on the same bf16 copy (1e-3
+     relative), microbatches=2 gradients within 5 % relative L1, one
+     step run twice bitwise, vocab_chunks=8 within 5e-3 of the dense loss
+     (each one's peak memory); (c) one train step of each other
+     architecture at `reduced()`: finite, bf16 against f32 compute params
+     within 0.05, MoE under both dispatches within 1e-3; (d) kill and
+     resume at `examples/train_lm`'s ~79 M config: 8 steps here against
+     4 + 4 in two fresh processes, losses and the final checkpoint
+     bitwise, the checkpoint's bytes, save and restore seconds; (e)
+     `python -m repro_torch.examples.train_lm` under the blocker: a loss
+     drop > 0.3, ms a step. It launches no kernel of the port.
 
 `--digests SRC` runs only phase 4's data, its f32 build, K3 grading,
 phase 4c's reordered f32 engine and the storage tier's tables with the
@@ -3946,6 +3965,373 @@ def lm_kernel_rows(torch, ops, ref, query_mod, c4) -> list:
     return rows
 
 
+# ------------------------------------------------- phase 11: LM training
+TRAIN_ARGS = ("--arch", "gemma-2b", "--full-config", "--global-batch", "2",
+              "--seq-len", "2048", "--steps", "12", "--microbatches", "1")
+TRAIN_SEED = 30                    # (b)-(d)'s parameters and batches
+TRAIN_SHORT = (2, 2048)            # (b): batch, tokens each
+TRAIN_SMALL = (2, 64)              # (c): batch, tokens each
+TRAIN_RESUME = (8, 4)              # (d): steps, the step it is killed at
+STEP_LINE = r"step\s+(\d+)\s+loss (\S+)\s+gnorm (\S+)\s+(\d+) ms/step"
+
+
+def train_lines(stdout: str, label: str) -> list:
+    """(step, loss, grad norm, ms) of each step line a launcher printed."""
+    import re
+    rows = [(int(s), float(lo), float(gn), float(ms)) for s, lo, gn, ms in
+            re.findall(STEP_LINE, stdout)]
+    check(rows, f"{label}: no step lines in its output")
+    return rows
+
+
+def train_plain_loss(torch, logits, labels, z_loss: float = 1e-4) -> float:
+    """The reference's masked CE with its z-loss, in f32 from (B, S, V)
+    logits, as plain torch."""
+    lg = logits.float()
+    mask = (labels >= 0).float()
+    lse = torch.logsumexp(lg, -1)
+    ll = torch.gather(lg, -1, labels.clamp(min=0)[..., None])[..., 0]
+    n = mask.sum().clamp(min=1.0)
+    return float(((lse - ll) * mask).sum() / n
+                 + z_loss * ((lse * mask) ** 2).sum() / n)
+
+
+def train_clone(torch, T, OptState, params, opt):
+    return (T.tree_map(torch.clone, params),
+            OptState(T.tree_map(torch.clone, opt.mu),
+                     T.tree_map(torch.clone, opt.nu), opt.step.clone()))
+
+
+def train_breakdown(torch, cfg, dev, batch: dict, reps: int = 3) -> str:
+    """Where a train step of `cfg` on `batch` spends its time on the card,
+    in this process: the step's device time beside its wall time (the
+    busy share) and its top kernels (`device_breakdown`), then, by CUDA
+    events, the loss and gradients (`_value_and_grad`, the bf16 cast
+    included) beside AdamW's update."""
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init, \
+        adamw_update
+    from repro_torch.train.trainer import _value_and_grad, make_train_step
+    model = Model(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(TRAIN_SEED)
+    params = model.init_params(g, dev)
+    opt = adamw_init(params)
+    step = make_train_step(model, AdamWConfig())
+    prof = device_breakdown(torch, lambda: step(params, opt, batch),
+                            reps=reps, top=6)
+    grads = [None]
+
+    def fb():
+        grads[0] = None
+        grads[0] = _value_and_grad(model, params, batch, True)[1]
+
+    fb_ms = time_ms(torch, fb, reps=reps)
+    opt_ms = time_ms(torch, lambda: adamw_update(AdamWConfig(), grads[0],
+                                                 opt, params), reps=reps)
+    del params, opt, grads
+    return (f"{prof}; loss and gradients {fb_ms:.1f} ms, AdamW "
+            f"{opt_ms:.1f} ms")
+
+
+def train_checks(dev, *, full_args=TRAIN_ARGS, configs=None,
+                 short=TRAIN_SHORT, small=TRAIN_SMALL, resume=TRAIN_RESUME,
+                 example_args=(), timeout=600.0) -> dict:
+    """Phase 11: the LM substrate's training path (`repro_torch.train`,
+    `launch.train`, `examples.train_lm`) on `dev` (the card; the CPU for
+    a rehearsal with small `full_args`, `configs` and `example_args`):
+
+      (a) `python -m repro_torch.launch.train` with `full_args` (gemma-2b
+          at its published size, 2 x 2,048 tokens a step, 12 steps; remat
+          "nothing", bf16 compute params) in a subprocess under the
+          import blocker: exit 0, every loss and grad norm finite; the
+          loss of each step, s a step after the first, tokens/s and the
+          peak device memory;
+      (b) gemma-2b at full width and `reduced_depth` in this process,
+          `short` tokens: the first step's loss against a plain f32 CE
+          (with the z-loss) over `forward_logits` on the same bf16 copy
+          (1e-3 relative); microbatches=2 gradients within 5 % relative
+          L1 of the full batch's; one step run twice from one state
+          bitwise equal in parameters and moments; vocab_chunks=8 within
+          5e-3 of the dense loss, each loss's peak memory printed;
+      (c) the nine other architectures at `reduced()`, `small` tokens:
+          one train step each with finite loss and gradients, bf16 and
+          f32 compute params within 0.05, the MoE families under both
+          dispatches within 1e-3;
+      (d) kill and resume at `examples/train_lm`'s ~79 M config: `resume`
+          = (8, 4): eight uninterrupted steps here, against four steps
+          with a checkpoint in a subprocess and a fresh subprocess that
+          resumes and runs four more: the losses and every leaf of the
+          final checkpoint bitwise equal; the checkpoint's bytes, its
+          save and restore seconds;
+      (e) `python -m repro_torch.examples.train_lm` (+ `example_args`)
+          under the blocker: exit 0, a loss drop > 0.3, ms a step.
+    """
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config, reduced, \
+        reduced_depth
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.examples import train_lm
+    from repro_torch.launch.train import build_parser, run_training
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import AdamWConfig, OptState, \
+        adamw_init
+    from repro_torch.train.trainer import _compute_params, \
+        _value_and_grad, make_train_step
+    if configs is None:
+        configs = {a: reduced(get_config(a)) for a in ARCH_IDS}
+        configs["gemma-2b"] = reduced_depth(get_config("gemma-2b"))
+    checks, times = [], {}
+    finite = lambda tree: all(bool(torch.isfinite(t).all())
+                              for t in T.leaves(tree))
+
+    # (a) gemma-2b at its published size through the entry point
+    t0 = time.perf_counter()
+    args = ("repro_torch.launch.train", *full_args, "--log-every", "1",
+            "--device", dev.type)
+    out = run_blocked(*args, timeout=timeout)
+    check(out.returncode == 0, f"(a) exit {out.returncode}: "
+          f"{out.stderr[-3000:]}")
+    rows = train_lines(out.stdout, "(a)")
+    rep = runner_report(out.stdout)
+    check(rep["leaked"] == [], f"(a) loaded {rep['leaked']}")
+    check(all(math.isfinite(lo) and math.isfinite(gn)
+              for _, lo, gn, _ in rows), "(a) a loss or grad norm is not "
+          "finite")
+    flag = build_parser().parse_args(list(full_args))
+    check([r[0] for r in rows] == list(range(flag.steps)),
+          f"(a) step lines {[r[0] for r in rows]}, expected {flag.steps}")
+    tokens = flag.global_batch * flag.seq_len
+    s_step = sum(r[3] for r in rows[1:]) / 1e3 / max(len(rows) - 1, 1)
+    peak = rep["peak_bytes"]
+    times["a"] = time.perf_counter() - t0
+    print(f"  (a) {' '.join(full_args)}: losses "
+          + " ".join(f"{r[1]:.4f}" for r in rows)
+          + f"; grad norms {rows[0][2]:.3f} .. {rows[-1][2]:.3f}; first "
+          f"step {rows[0][3] / 1e3:.2f} s, then {s_step:.3f} s a step, "
+          f"{tokens / s_step:,.0f} tokens/s; peak "
+          + ("not measured (CPU)" if peak is None
+             else f"{peak / 1e9:.2f} GB")
+          + f"; {times['a']:.1f} s with the process start")
+    if dev.type == "cuda":
+        fcfg = get_config(flag.arch)
+        if not flag.full_config:
+            fcfg = configs["gemma-2b"]
+        fb = TokenPipeline(PipelineConfig(
+            vocab=fcfg.vocab, seq_len=flag.seq_len,
+            global_batch=flag.global_batch), device=dev).batch_at(0)
+        torch.cuda.empty_cache()
+        print(f"  (a) the same step in this process: "
+              f"{train_breakdown(torch, fcfg, dev, fb)}")
+        del fb
+        torch.cuda.empty_cache()
+    checks.append("a")
+
+    # (b) gemma-2b at full width, reduced depth: the step's numbers
+    t0 = time.perf_counter()
+    cfg = configs["gemma-2b"]
+    model = Model(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(TRAIN_SEED)
+    held = lm_memory_start(torch, dev)
+    params = model.init_params(g, dev)
+    opt = adamw_init(params)
+    batch = TokenPipeline(PipelineConfig(
+        vocab=cfg.vocab, seq_len=short[1], global_batch=short[0],
+        seed=TRAIN_SEED), device=dev).batch_at(0)
+    step = make_train_step(model, AdamWConfig())
+    with torch.no_grad():
+        comp = _compute_params(params, True)
+        plain = train_plain_loss(torch, T.forward_logits(
+            comp, batch["tokens"], cfg), batch["labels"])
+        del comp
+    runs = []
+    for _ in range(2):
+        p, o = train_clone(torch, T, OptState, params, opt)
+        runs.append(step(p, o, batch))
+        lm_sync(torch, dev)
+    loss = float(runs[0][2]["loss"])
+    check(abs(loss - plain) <= 1e-3 * abs(plain), f"(b) first loss "
+          f"{loss} against the plain f32 CE {plain}")
+    same = all(torch.equal(a, b) for x, y in zip(runs[0][:2], runs[1][:2])
+               for a, b in zip(T.leaves(x), T.leaves(y)))
+    check(same, "(b) one step twice from one state differs")
+    check(torch.equal(runs[0][2]["loss"], runs[1][2]["loss"]),
+          "(b) the repeated step's loss differs")
+    del runs, p, o
+    _, g_full = _value_and_grad(model, params, batch, True)
+    half = short[0] // 2
+    parts = [_value_and_grad(model, params, {k: v[i * half:(i + 1) * half]
+                                             for k, v in batch.items()},
+                             True)[1] for i in range(2)]
+    gn = dn = 0.0
+    for a, b, c in zip(T.leaves(g_full), T.leaves(parts[0]),
+                       T.leaves(parts[1])):
+        gn += float(a.abs().sum())
+        dn += float(((b + c) / 2 - a).abs().sum())
+    del g_full, parts
+    check(dn < 0.05 * gn, f"(b) microbatch gradients {dn / gn:.4f} "
+          "relative L1 from the full batch's")
+    peaks = {}
+    losses_bc = {}
+    for chunks in (0, 8):
+        lm_sync(torch, dev)
+        base = lm_memory_start(torch, dev)
+        l_, gr = _value_and_grad(
+            Model(dataclasses.replace(cfg, vocab_chunks=chunks)), params,
+            batch, True)
+        lm_sync(torch, dev)
+        losses_bc[chunks] = float(l_)
+        peaks[chunks] = lm_peak(torch, dev, base)
+        del gr
+    check(abs(losses_bc[8] - losses_bc[0]) < 5e-3, f"(b) chunked loss "
+          f"{losses_bc[8]} against dense {losses_bc[0]}")
+    times["b"] = time.perf_counter() - t0
+    print(f"  (b) {cfg.name} at d_model {cfg.d_model}, {cfg.n_layers} "
+          f"layers, {short[0]} x {short[1]} tokens: first loss {loss:.6f} "
+          f"against the plain f32 CE {plain:.6f} (rel "
+          f"{abs(loss - plain) / abs(plain):.2e}); microbatch gradients "
+          f"{dn / gn:.2e} relative L1 from the full batch's; one step "
+          f"twice bitwise equal; vocab_chunks=8 loss "
+          f"{losses_bc[8]:.6f} against dense {losses_bc[0]:.6f}, "
+          f"loss+grad {peaks[8]} chunked, {peaks[0]} dense; "
+          f"{lm_peak(torch, dev, held)}; {times['b']:.1f} s")
+    del params, opt, batch
+    checks.append("b")
+
+    # (c) the nine other architectures at reduced(): one step each
+    t0 = time.perf_counter()
+    notes = []
+    for arch, acfg in configs.items():
+        if arch == "gemma-2b":
+            continue
+        model = Model(acfg)
+        params = model.init_params(g, dev)
+        batch = TokenPipeline(PipelineConfig(
+            vocab=acfg.vocab, seq_len=small[1], global_batch=small[0],
+            seed=TRAIN_SEED), device=dev).batch_at(0)
+        if acfg.family == "encdec":
+            batch["frames"] = torch.randn(
+                (small[0], acfg.enc_seq, acfg.d_model), generator=g,
+                device=dev)
+        l32, g32 = _value_and_grad(model, params, batch, False)
+        l16, g16 = _value_and_grad(model, params, batch, True)
+        check(math.isfinite(float(l32)) and finite(g32) and finite(g16),
+              f"(c) {arch}: loss or gradients not finite")
+        check(abs(float(l32) - float(l16)) < 0.05, f"(c) {arch}: bf16 "
+              f"compute params {float(l16)} against f32 {float(l32)}")
+        del g32, g16
+        note = f"{arch} {float(l16):.4f} (f32 {float(l32):.4f})"
+        if acfg.family == "moe":
+            assert L.MOE_DISPATCH == "scatter"
+            try:
+                L.MOE_DISPATCH = "einsum"
+                le, _ = _value_and_grad(model, params, batch, True)
+            finally:
+                L.MOE_DISPATCH = "scatter"
+            check(abs(float(le) - float(l16)) < 1e-3, f"(c) {arch}: "
+                  f"einsum dispatch {float(le)} against scatter "
+                  f"{float(l16)}")
+            note += f", einsum {float(le):.4f}"
+        opt = adamw_init(params)
+        p, o, m = make_train_step(model, AdamWConfig())(params, opt, batch)
+        check(math.isfinite(float(m["loss"]))
+              and math.isfinite(float(m["grad_norm"])) and finite(p),
+              f"(c) {arch}: the train step is not finite")
+        notes.append(note)
+        del params, opt, p, o, batch
+    times["c"] = time.perf_counter() - t0
+    print(f"  (c) one train step each at reduced(), {small[0]} x "
+          f"{small[1]} tokens, losses: " + "; ".join(notes)
+          + f"; {times['c']:.1f} s")
+    checks.append("c")
+
+    # (d) kill and resume at train_lm's config
+    t0 = time.perf_counter()
+    rcfg, _, gb, seq = train_lm.config(dev.type == "cpu")
+    total, kill = resume
+    tmp = tempfile.mkdtemp()
+    try:
+        d_full, d_kill = os.path.join(tmp, "full"), os.path.join(tmp, "kill")
+        kw = dict(global_batch=gb, seq_len=seq, ckpt_every=10**6, lr=1e-3,
+                  log_every=10**6, device=dev)
+        _, l_full = run_training(rcfg, steps=total, ckpt_dir=d_full, **kw)
+        code = ("import json\n"
+                "from repro_torch.examples.train_lm import config\n"
+                "from repro_torch.launch.train import run_training\n"
+                f"cfg, _, gb, seq = config({dev.type == 'cpu'})\n"
+                "_, losses = run_training(cfg, steps={steps}, "
+                f"global_batch=gb, seq_len=seq, ckpt_dir={d_kill!r}, "
+                f"ckpt_every=10**6, lr=1e-3, log_every=10**6, "
+                f"device={dev.type!r})\n"
+                "print('losses: ' + json.dumps(losses))\n")
+        got = []
+        for steps in (kill, total):
+            o = run_blocked("-c", code.replace("{steps}", str(steps)),
+                            timeout=timeout)
+            check(o.returncode == 0, f"(d) the run to step {steps}: "
+                  f"exit {o.returncode}: {o.stderr[-3000:]}")
+            line = [x for x in o.stdout.splitlines()
+                    if x.startswith("losses: ")]
+            check(line, f"(d) the run to step {steps} printed no losses")
+            got.append(json.loads(line[-1][len("losses: "):]))
+            if steps == total:
+                check(f"resumed from step {kill}" in o.stdout,
+                      "(d) the second run did not resume")
+        check(got[0] == l_full[:kill] and got[1] == l_full[kill:],
+              f"(d) losses {got} against uninterrupted {l_full}")
+        tpl = {"params": Model(rcfg).abstract_params(),
+               "opt": adamw_init(Model(rcfg).abstract_params())}
+        a, _, _ = ckpt.restore(d_full, tpl, device="cpu")
+        b, _, _ = ckpt.restore(d_kill, tpl, device="cpu")
+        check(all(torch.equal(x, y) for x, y in zip(T.leaves(a),
+                                                    T.leaves(b))),
+              "(d) a leaf of the resumed run's state differs")
+        nbytes = os.path.getsize(os.path.join(
+            d_full, f"step_{total:08d}", "arrays.npz"))
+        t1 = time.perf_counter()
+        state, _, _ = ckpt.restore(d_full, tpl, device=dev)
+        lm_sync(torch, dev)
+        restore_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        ckpt.save(os.path.join(tmp, "again"), total, state)
+        save_s = time.perf_counter() - t1
+        del a, b, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    times["d"] = time.perf_counter() - t0
+    print(f"  (d) {rcfg.n_layers} layers at d_model {rcfg.d_model}, vocab "
+          f"{rcfg.vocab}, {gb} x {seq} tokens: {total} steps against "
+          f"{kill} + {total - kill} across two processes, losses and the "
+          f"state bitwise equal (losses {', '.join(f'{x:.4f}' for x in l_full)}"
+          f"); checkpoint {nbytes:,} bytes, save {save_s:.2f} s, restore "
+          f"to the device {restore_s:.2f} s; {times['d']:.1f} s")
+    checks.append("d")
+
+    # (e) the example under the blocker
+    t0 = time.perf_counter()
+    out = run_blocked("repro_torch.examples.train_lm", *example_args,
+                      timeout=timeout)
+    check(out.returncode == 0, f"(e) exit {out.returncode}: "
+          f"{out.stderr[-3000:]}")
+    drop = float(parse(r"\(drop (\S+) over", out.stdout, "e").group(1))
+    ms = float(parse(r", (\S+) ms/step with checkpoints", out.stdout,
+                     "e").group(1))
+    check(drop > 0.3, f"(e) the loss dropped by {drop}")
+    check(runner_report(out.stdout)["leaked"] == [], "(e) leaked modules")
+    times["e"] = time.perf_counter() - t0
+    print(f"  (e) examples.train_lm: loss drop {drop:.3f}, {ms:.1f} ms a "
+          f"step with its checkpoints; {times['e']:.1f} s")
+    checks.append("e")
+    return {"checks": checks, "times": times}
+
+
 def digests_of(torch, exact_mod, rt_mod, ReverseKRanksEngine,
                RankTableConfig, synthetic_embeddings, ops, query_mod,
                pruning, PrunedBackend):
@@ -5331,6 +5717,18 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
     del report10
     print(f"  phase 10: checks abc passed, {time.perf_counter() - t10:.1f} s; "
           f"{nvidia_smi_line()}")
+
+    # 11. the LM substrate's training path
+    print("phase: LM training (gemma-2b at its published size through "
+          "launch.train, the step's checks at full width, one step of "
+          "every architecture, kill and resume, examples.train_lm)")
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    report11 = train_checks(dev)
+    check(report11["checks"] == list("abcde"),
+          "phase 11 did not run every check")
+    print(f"  phase 11: checks abcde passed, "
+          f"{time.perf_counter() - t11:.1f} s; {nvidia_smi_line()}")
     return out
 
 

@@ -10,7 +10,8 @@ on a given device, so that both packages compute on the same state;
 mutable index (a snapshot's delta correction, sampling state and delta
 buffer). `model_params_from_reference` and `cache_from_reference` carry
 the LM substrate's parameters and decode caches across (the same nested
-dicts, leaf by leaf).
+dicts, leaf by leaf), `opt_state_from_reference` an AdamW state and
+`batch_from_reference` a training batch.
 
 Every array keeps its storage dtype: f32 stays f32, int8 codes stay
 int8, and bf16 travels as its 16-bit pattern. NumPy has no bf16 of its
@@ -32,7 +33,8 @@ from repro_torch.core.types import DeltaCorrection, RankTable, \
 from repro_torch.device import resolve_device
 from repro_torch.index.delta import BaseIndex, DeltaState
 from repro_torch.index.snapshot import IndexSnapshot
-from repro_torch.models.transformer import leaves
+from repro_torch.models.transformer import leaves, tree_map
+from repro_torch.train.optimizer import OptState
 
 
 class ReferenceState(NamedTuple):
@@ -176,14 +178,6 @@ def snapshot_from_reference(snap, art=None, *, device=None
         stored_users=st.stored_users)
 
 
-def _tree(x, leaf):
-    if isinstance(x, dict):
-        return {k: _tree(v, leaf) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        return [_tree(v, leaf) for v in x]
-    return leaf(x)
-
-
 def model_params_from_reference(tree, cfg, device=None) -> dict:
     """The reference's LM parameters (its nested dict, any leaves
     `numpy.asarray` accepts: stacked segments with their leading
@@ -198,7 +192,7 @@ def model_params_from_reference(tree, cfg, device=None) -> dict:
     if set(tree) != want:
         raise ValueError(f"parameter groups {sorted(tree)} are not "
                          f"{sorted(want)} of {cfg.name}")
-    out = _tree(tree, lambda x: _f32(x, dev))
+    out = tree_map(lambda x: _f32(x, dev), tree)
     for key, segs in (("segments", cfg.segments()),
                       ("enc_segments", cfg.enc_segments())):
         if key not in out:
@@ -219,5 +213,30 @@ def cache_from_reference(cache, device=None) -> dict:
     """The reference's decode cache as the port's on `device`: each leaf
     in its storage dtype (bf16 bit for bit, f32), `len` a Python int."""
     dev = resolve_device(device)
-    return {"segments": _tree(cache["segments"], lambda x: _stored(x, dev)),
+    return {"segments": tree_map(lambda x: _stored(x, dev),
+                                 cache["segments"]),
             "len": int(np.asarray(cache["len"]))}
+
+
+def opt_state_from_reference(state, cfg, device=None):
+    """The reference's AdamW `OptState` (numpy-convertible leaves: `mu`
+    and `nu` in the parameters' layout, `step`) as the port's on
+    `device`: f32 moments, `step` a 0-d int32 tensor."""
+    dev = resolve_device(device)
+    return OptState(
+        mu=model_params_from_reference(state.mu, cfg, dev),
+        nu=model_params_from_reference(state.nu, cfg, dev),
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev))
+
+
+def batch_from_reference(batch, device=None) -> dict:
+    """A reference training batch ({"tokens", "labels"} integer arrays,
+    plus "frames" for the enc-dec) as the port's on `device`: tokens and
+    labels int64, frames f32."""
+    dev = resolve_device(device)
+    out = {k: _i64(batch[k], dev) for k in ("tokens", "labels")
+           if k in batch}
+    if batch.get("frames") is not None:
+        out["frames"] = _f32(batch["frames"], dev)
+    return out

@@ -9,10 +9,13 @@ the input of the MF trainer (`data.mf`). `zipf_clustered` and
 `mid_mixture` are the counterparts of the pruning bench's user regimes
 (`benchmarks/common.py`): Zipf-sized tight user clusters in
 cluster-contiguous row order, and the same core mixed with an i.i.d.
-noise floor and shuffled. The numbers differ from `jax.random`'s; the
-distributions are the same.
+noise floor and shuffled. `TokenPipeline` is the counterpart of the
+reference's deterministic LM token stream. The numbers differ from
+`jax.random`'s; the distributions are the same.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -150,3 +153,61 @@ def mid_mixture(seed: int, n: int, m: int, d: int, *, device=None
     users = torch.cat([core, noise])
     users = users[torch.randperm(n, generator=g, device=dev)]
     return users, items, icl
+
+
+# ------------------------------------------------------------ LM tokens
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    zipf_a: float = 1.2
+    repeat_p: float = 0.3       # P(copy an earlier nearby token)
+
+
+class TokenPipeline:
+    """Deterministic, stateless LM token stream.
+
+    Every batch is a pure function of (seed, step, host_index): it is
+    drawn on a CPU `torch.Generator` seeded from those three (through
+    numpy's `SeedSequence`), then moved to `device`, so that
+
+      * resume after preemption replays the exact stream (bitwise) — the
+        checkpoint only needs to store the step;
+      * the stream is the same on the CPU and on the card;
+      * host h of H draws its own B/H rows of the step's global batch.
+
+    Tokens follow a Zipf(`zipf_a`) marginal over the vocabulary, drawn by
+    inverse CDF (cumulative probabilities in float64, `searchsorted`: no
+    (B, S, V) tensor), and with probability `repeat_p` a token copies the
+    drawn token 1-7 places before it, so cross-entropy actually decreases
+    during the example training runs."""
+
+    def __init__(self, cfg: PipelineConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        ranks = torch.arange(1, cfg.vocab + 1, dtype=torch.float64)
+        p = torch.pow(ranks, -cfg.zipf_a)
+        self._cdf = torch.cumsum(p / p.sum(), 0)
+
+    def batch_at(self, step: int, host_index: int = 0, host_count: int = 1
+                 ) -> dict:
+        """{"tokens", "labels"}: (B/host_count, seq_len) int64 on the
+        pipeline's device; labels are the tokens shifted by one."""
+        cfg = self.cfg
+        b, S1 = cfg.global_batch // host_count, cfg.seq_len + 1
+        seed = np.random.SeedSequence(
+            [cfg.seed, step, host_index]).generate_state(1, np.uint64)[0]
+        g = torch.Generator()
+        g.manual_seed(int(seed) & ((1 << 63) - 1))
+        u = torch.rand((b, S1), generator=g, dtype=torch.float64)
+        base = torch.clamp(torch.searchsorted(self._cdf, u, right=True),
+                           max=cfg.vocab - 1)
+        # short-range repetition: with prob repeat_p, copy token t-Δ
+        delta = torch.randint(1, 8, (b, S1), generator=g)
+        idx = torch.clamp(torch.arange(S1)[None, :] - delta, min=0)
+        copied = torch.gather(base, 1, idx)
+        mask = torch.rand((b, S1), generator=g) < cfg.repeat_p
+        seq = torch.where(mask, copied, base).to(self.device)
+        return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}

@@ -7,7 +7,9 @@
   ablation        — what each piece of Algorithm 1 buys (ω, s, threshold
                     mode);
   serve_retrieval — ratings → MF embeddings → a `cached:dense` index →
-                    a MicroBatcher burst → §5 grading (steps 1-3 of the
-                    reference's example; its step 4, backbone-encoded
-                    embeddings, waits for the LM substrate's port).
+                    a MicroBatcher burst → §5 grading, then step 4:
+                    backbone-encoded embeddings;
+  train_lm        — train a ~79 M-parameter dense LM for 200 steps with
+                    checkpoints (`main(*, device=None, tiny=False,
+                    steps=None)`).
 """

@@ -1,4 +1,5 @@
-"""Launchers of the port: the serving driver (`launch.serve`, run as
-`python -m repro_torch.launch.serve`). The reference's training driver,
-multi-pod dry-run, mesh and roofline launchers belong to the LM
-substrate and come with its port (ROADMAP queue 1 item 14)."""
+"""Launchers of the port: the serving entry point (`launch.serve`, run as
+`python -m repro_torch.launch.serve`) and the training launcher
+(`launch.train`, `python -m repro_torch.launch.train`). The reference's
+multi-pod dry-run, mesh and roofline launchers come with the port's
+sharding (ROADMAP queue 1 item 14)."""

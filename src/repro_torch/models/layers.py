@@ -12,8 +12,8 @@ operands are widened to float32 first, which gives the exact products
 and float32 sums. Norms and softmax stay float32.
 
 The reference's `shard(...)` annotations are no-ops without a mesh and
-are left out; so is its one-hot ("einsum") MoE dispatch, whose routing
-and drops are the scatter dispatch's.
+are left out. Both of its MoE dispatches are here, chosen by the module
+constant `MOE_DISPATCH` as in the reference; they share `moe_route`.
 """
 from __future__ import annotations
 
@@ -273,6 +273,15 @@ def mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------- MoE
+# Two dispatch strategies (the same routing, positions and drops, from
+# `moe_route`):
+#   einsum  — t5x-style one-hot (G, E, C) dispatch/combine tensors. Simple,
+#             but its traffic scales with G·E·C.
+#   scatter — positional scatter into an (E·C, d) buffer and gather back:
+#             O(G·K·d) traffic, no one-hot tensors.
+MOE_DISPATCH = "scatter"
+
+
 def init_moe(g, cfg, lead=(), dev=None) -> dict:
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
     si, so = d ** -0.5, f ** -0.5
@@ -318,6 +327,25 @@ def moe_route(p: dict, xg: torch.Tensor, cfg):
     return gate_vals, keep, dest, C
 
 
+def _moe_group(p: dict, xg: torch.Tensor, cfg) -> torch.Tensor:
+    """Capacity-based top-k dispatch of one token group xg (G, d) through
+    one-hot tensors: dispatch (G, E, C) holds a 1 where a kept assignment
+    lands, combine its renormalized gate; tokens go in and come out by
+    einsums with f32 results (exact for dispatch: one token a slot)."""
+    G, d = xg.shape
+    E = cfg.n_experts
+    dt = xg.dtype
+    gate_vals, keep, dest, C = moe_route(p, xg, cfg)
+    hot = F.one_hot(dest, E * C + 1)[..., :E * C]            # (G, K, E·C)
+    dispatch = hot.sum(1).to(dt).reshape(G, E, C)
+    combine = (hot * (gate_vals * keep)[..., None]).sum(1).reshape(G, E, C)
+    xin = _mm32("gec,gd->ecd", dispatch, xg).to(dt)
+    h = F.silu(torch.einsum("ecd,edf->ecf", xin, p["w_gate"].to(dt))) \
+        * torch.einsum("ecd,edf->ecf", xin, p["w_up"].to(dt))
+    y = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(dt))
+    return _mm32("gec,ecd->gd", combine.to(dt), y).to(dt)
+
+
 def _moe_group_scatter(p: dict, xg: torch.Tensor, cfg) -> torch.Tensor:
     """Capacity-based top-k dispatch without one-hot tensors: each
     (token, slot) assignment scatters its row into an (E·C, d) expert
@@ -348,15 +376,15 @@ def moe(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     slicing the SEQUENCE dim only — (B, ns, Gs, d) — as the reference's
     scan does."""
     B, S, d = x.shape
+    group = _moe_group_scatter if MOE_DISPATCH == "scatter" else _moe_group
     Gs = max(min(cfg.moe_group_tokens // max(B, 1), S), 1)
     if S % Gs != 0:
         Gs = S                              # ragged: single group
     ns = S // Gs
     if ns == 1:
-        return _moe_group_scatter(p, x.reshape(B * S, d), cfg
-                                  ).reshape(B, S, d)
+        return group(p, x.reshape(B * S, d), cfg).reshape(B, S, d)
     xs = x.reshape(B, ns, Gs, d)
-    out = [_moe_group_scatter(p, xs[:, i].reshape(B * Gs, d), cfg
-                              ).reshape(B, Gs, d) for i in range(ns)]
+    out = [group(p, xs[:, i].reshape(B * Gs, d), cfg).reshape(B, Gs, d)
+           for i in range(ns)]
     return torch.stack(out, dim=1).reshape(B, S, d)
 

@@ -1,9 +1,11 @@
-"""Model facade: ties a ModelConfig to the init / prefill / decode
+"""Model facade: ties a ModelConfig to the init / loss / prefill / decode
 functions of `transformer`, plus the two serving steps built on it.
 
-Counterpart of the reference's `models/model.py` (its serving surface)
-and of `train/trainer.py::make_prefill_step` / `make_serve_step`. The
-sharding specs and the training loss come with later parts of the port.
+Counterpart of the reference's `models/model.py` and of
+`train/trainer.py::make_prefill_step` / `make_serve_step` (which
+`repro_torch.train.trainer` re-exports). The sharding specs
+(`param_specs`, `cache_specs`, `batch_specs`) come with the port's
+sharding.
 """
 from __future__ import annotations
 
@@ -24,6 +26,14 @@ class Model:
     def init_params(self, generator: Union[int, torch.Generator],
                     device=None) -> dict:
         return T.init_params(generator, self.cfg, device)
+
+    def abstract_params(self) -> dict:
+        """The parameter tree on the meta device (shapes and dtypes, no
+        allocation): the template of a checkpoint's restore."""
+        return T.abstract_params(self.cfg)
+
+    def loss_fn(self, params, batch) -> torch.Tensor:
+        return T.lm_loss(params, batch, self.cfg)
 
     def forward_logits(self, params, tokens,
                        frames: Optional[torch.Tensor] = None):

@@ -65,8 +65,10 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 def _rglru_coeffs(p: dict, u: torch.Tensor):
     """Per-step (a_t, b_t) of the RG-LRU recurrence (float32)."""
     uf = u.float()
-    rec_gate = torch.sigmoid(uf @ p["w_a"] + p["b_a"])
-    in_gate = torch.sigmoid(uf @ p["w_i"] + p["b_i"])
+    # f32 products (a bf16 compute copy of the gates widens, as jnp
+    # promotes it)
+    rec_gate = torch.sigmoid(uf @ p["w_a"].float() + p["b_a"])
+    in_gate = torch.sigmoid(uf @ p["w_i"].float() + p["b_i"])
     log_a = -_RG_C * _softplus(p["lam"]) * rec_gate           # ≤ 0
     a = torch.exp(log_a)
     # sqrt(1 - a²) via expm1 for precision near a ≈ 1
@@ -170,7 +172,8 @@ def _tmix_inputs(p: dict, x: torch.Tensor, xx: torch.Tensor, cfg):
     v = (mix(p["mu_v"]) @ p["w_v"].to(dt)).reshape(B, S, H, hd)
     g = F.silu(mix(p["mu_g"]) @ p["w_g"].to(dt))
     xw = mix(p["mu_w"]).float()
-    dlog = torch.tanh(xw @ p["lora_a"]) @ p["lora_b"]        # (B,S,d)
+    dlog = torch.tanh(xw @ p["lora_a"].float()) \
+        @ p["lora_b"].float()                                # (B,S,d) f32
     logw = -torch.exp(p["w0"] + dlog)                         # ≤ 0, f32
     return r, k, v, g, logw.reshape(B, S, H, hd)
 

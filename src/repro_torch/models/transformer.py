@@ -1,25 +1,29 @@
 """Backbone assembly: stacked layer segments for all 10 architectures.
 
-Counterpart of the reference's `models/transformer.py` on its serving
-path. Parameters and caches are plain nested dicts of tensors in the
-reference's layout: layers are stacked per `cfg.segments()` (see
-ModelConfig), each segment holding its pattern's blocks with a leading
-`repeats` axis, and a forward pass loops over the repeats, taking each
-layer's slice as a view.
+Counterpart of the reference's `models/transformer.py`. Parameters and
+caches are plain nested dicts of tensors in the reference's layout:
+layers are stacked per `cfg.segments()` (see ModelConfig), each segment
+holding its pattern's blocks with a leading `repeats` axis. A forward
+pass unbinds each segment into its layers once (views; under autograd
+the backward stacks their gradients in one go) and loops over them; under
+autograd each layer's body is rematerialized as `cfg.remat` says.
 
 Public surface:
   init_params(generator, cfg, device)  — f32 master parameters
-  forward_hidden / forward_logits      — prefill hidden states / logits
+  abstract_params(cfg)                 — the same tree on the meta device
+  forward_hidden / forward_logits      — train/prefill hidden states, logits
+  lm_loss(params, batch, cfg)          — masked CE (+ z-loss), dense or
+                                         chunked over the vocabulary
   encode(params, frames)               — enc-dec encoder (whisper stub input)
   init_cache / fill_cross_kv / decode_step — one-token serving with caches
-
-Not here yet: `lm_loss` and its chunked cross-entropy (training).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -119,19 +123,77 @@ def leaves(tree):
         yield tree
 
 
+def tree_map(fn, tree, *rest):
+    """`fn` over the leaves of `tree` and the matching leaves of `rest`
+    (trees of the same structure: dicts, lists, tuples and NamedTuples)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        if hasattr(tree, "_fields"):
+            return type(tree)(*out)
+        return type(tree)(out)
+    return fn(tree, *rest)
+
+
+def _unbind(seg, repeats: int) -> list:
+    """A stacked segment as `repeats` per-layer trees of views: one
+    `unbind(0)` per leaf, so that under autograd the backward stacks the
+    layers' gradients once (indexing each layer would allocate and add a
+    zero tensor the size of the whole leaf per layer)."""
+    if isinstance(seg, dict):
+        parts = {k: _unbind(v, repeats) for k, v in seg.items()}
+        return [{k: p[r] for k, p in parts.items()} for r in range(repeats)]
+    return list(seg.unbind(0))
+
+
 def _init_segment(g, pattern, repeats, cfg, dev) -> dict:
     return {f"b{i}": _init_block(b, g, cfg, (repeats,), dev)
             for i, b in enumerate(pattern)}
 
 
+# what remat "dots" keeps: the outputs of the products (the counterpart of
+# `jax.checkpoint_policies.checkpoint_dots`); everything else is recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg):
+    """`fn` under `cfg.remat` when autograd records: "nothing" keeps only
+    the layer's inputs and recomputes its body in the backward, "dots"
+    also keeps the products' outputs, "none" is plain autograd. Without
+    autograd (serving) `fn` runs as it is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat != "nothing":
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False,
+                             **kw)
+
+
 def _apply_segments(params_segs, segments, x, cfg, positions, *,
                     enc_kv=None) -> torch.Tensor:
     for seg_params, (pattern, repeats) in zip(params_segs, segments):
-        for r in range(repeats):
-            layer_p = layer(seg_params, r)
+        def body(h, layer_p, pattern=pattern):
             for i, b in enumerate(pattern):
-                x = _apply_block(b, layer_p[f"b{i}"], x, cfg, positions,
+                h = _apply_block(b, layer_p[f"b{i}"], h, cfg, positions,
                                  enc_kv=enc_kv)
+            return h
+
+        body = _remat(body, cfg)
+        for layer_p in _unbind(seg_params, repeats):
+            x = body(x, layer_p)
     return x
 
 
@@ -148,6 +210,16 @@ def init_params(generator: Union[int, torch.Generator], cfg: ModelConfig,
     if isinstance(g, int):
         g = torch.Generator(device=dev)
         g.manual_seed(generator)
+    return _init_params(g, cfg, dev)
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree on the meta device: every leaf's shape and
+    dtype, nothing allocated (checkpoint templates)."""
+    return _init_params(None, cfg, torch.device("meta"))
+
+
+def _init_params(g, cfg: ModelConfig, dev) -> dict:
     d = cfg.d_model
     p = {"embed": {"tok": L._normal(g, (cfg.vocab, d), 0.02, dev)}}
     p["segments"] = [_init_segment(g, pattern, repeats, cfg, dev)
@@ -210,9 +282,111 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 def forward_logits(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                    frames: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence logits (prefill). tokens: (B, S) integer."""
+    """Full-sequence logits (training / prefill). tokens: (B, S) integer."""
     return _logits(params, forward_hidden(params, tokens, cfg,
                                           frames=frames), cfg)
+
+
+# ------------------------------------------------------------------- loss
+class _ChunkedCE(torch.autograd.Function):
+    """Online-logsumexp cross-entropy over vocab chunks. The forward keeps
+    its inputs and (lse, label logit) only; the backward recomputes each
+    chunk's logits, turns them into (softmax − one-hot) and accumulates
+    the gradients of x and of the head chunk by chunk, so no (B, S, V)
+    tensor lives at any time. Products widen both operands to f32 (exact
+    products, f32 sums: the reference's `preferred_element_type`); the
+    gradients sum over chunks in f32 and are rounded once to the inputs'
+    dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, head, labels, n_chunks):
+        B, S = labels.shape
+        V = head.shape[1]
+        Vc = V // n_chunks
+        xf = x.float()
+        m = torch.full((B, S), -1e30, device=x.device)
+        se = torch.zeros((B, S), device=x.device)
+        ll = torch.zeros((B, S), device=x.device)
+        for ci in range(n_chunks):
+            logits = xf @ head[:, ci * Vc:(ci + 1) * Vc].float()
+            m_new = torch.maximum(m, logits.amax(-1))
+            se = se * torch.exp(m - m_new) + torch.exp(
+                logits - m_new[..., None]).sum(-1)
+            local = labels - ci * Vc
+            inside = (local >= 0) & (local < Vc)
+            picked = torch.gather(logits, -1, torch.clamp(
+                local, 0, Vc - 1)[..., None])[..., 0]
+            ll = ll + torch.where(inside, picked, 0.0)
+            m = m_new
+        lse = m + torch.log(torch.clamp(se, min=1e-30))
+        ctx.n_chunks = n_chunks
+        ctx.save_for_backward(x, head, labels, lse)
+        return lse, ll
+
+    @staticmethod
+    def backward(ctx, g_lse, g_ll):
+        x, head, labels, lse = ctx.saved_tensors
+        n_chunks = ctx.n_chunks
+        V = head.shape[1]
+        Vc = V // n_chunks
+        xf = x.float()
+        g_lse = torch.zeros_like(lse) if g_lse is None else g_lse
+        g_ll = torch.zeros_like(lse) if g_ll is None else g_ll
+        dx = torch.zeros_like(xf)
+        dhead = torch.empty(head.shape, dtype=torch.float32,
+                            device=head.device)
+        for ci in range(n_chunks):
+            hc = head[:, ci * Vc:(ci + 1) * Vc].float()
+            logits = xf @ hc                                # (B, S, Vc)
+            dlog = torch.exp(logits - lse[..., None]) * g_lse[..., None]
+            local = labels - ci * Vc
+            inside = (local >= 0) & (local < Vc)
+            # one index a row: no two adds meet
+            dlog.scatter_add_(-1, torch.clamp(local, 0, Vc - 1)[..., None],
+                              torch.where(inside, g_ll, 0.0)[..., None])
+            dx += dlog @ hc.T
+            dhead[:, ci * Vc:(ci + 1) * Vc] = torch.einsum(
+                "bsd,bsv->dv", xf, dlog)
+        return dx.to(x.dtype), dhead.to(head.dtype), None, None
+
+
+def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                n_chunks: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Online-logsumexp cross-entropy over vocab chunks (§Perf H5).
+
+    x (B, S, D), head (D, V) with V divisible by `n_chunks`, labels
+    (B, S) in [0, V). Never materializes the full (B, S, V) f32 logits,
+    in the forward or the backward. Returns (lse, label_logit), both
+    (B, S) f32."""
+    return _ChunkedCE.apply(x, head, labels, n_chunks)
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
+            z_loss: float = 1e-4) -> torch.Tensor:
+    """Masked next-token cross-entropy. batch: tokens/labels (B,S)
+    integer, labels < 0 are masked; encdec adds frames (B,enc_seq,D).
+    With cfg.vocab_chunks > 1 dividing the vocabulary the (B,S,V) f32
+    logits never materialize. Returns a 0-d f32 tensor."""
+    x = forward_hidden(params, batch["tokens"], cfg,
+                       frames=batch.get("frames"))
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    safe = torch.clamp(labels, min=0)
+    head = (params["embed"]["tok"].T if cfg.tie_embeddings
+            else params["lm_head"]["w"])
+    if cfg.vocab_chunks > 1 and cfg.vocab % cfg.vocab_chunks == 0:
+        lse, ll = _chunked_ce(x.to(torch.bfloat16), head.to(torch.bfloat16),
+                              safe, cfg.vocab_chunks)
+    else:
+        logits = (x @ head.to(x.dtype)).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / denom
+    if z_loss:
+        loss = loss + z_loss * ((lse * mask) ** 2).sum() / denom
+    return loss
 
 
 # ------------------------------------------------------------------ decode

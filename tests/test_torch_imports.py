@@ -6,7 +6,8 @@ audits served queries (`repro_torch.obs.audit`), queries a sharded
 engine (directly and through `pruned:sharded`), runs the ring exact ranks
 and a QSRP query, prefills and decodes every architecture of the LM
 substrate (`repro_torch.models`, `repro_torch.configs`) and runs step 4
-of `serve_retrieval`; its serving driver (`python -m
+of `serve_retrieval`, trains a tiny MoE (`repro_torch.launch.train.
+run_training`), checkpoints it and resumes it bitwise; its serving driver (`python -m
 repro_torch.launch.serve`) and the examples run under the same blocker
 (`chip_smoke.run_blocked`); and its entry points never fall back to the
 CPU quietly."""
@@ -160,6 +161,24 @@ with contextlib.redirect_stdout(io.StringIO()):     # its answer line
     out = serve_retrieval.backbone_step(torch.device("cpu"), n_users=32,
                                         n_items=16)
 assert len(out["result"].indices) == 5
+import dataclasses, tempfile
+from repro_torch.launch.train import run_training
+from repro_torch.train import checkpoint as ckpt
+cfg = dataclasses.replace(reduced(get_config("moonshot-v1-16b-a3b")),
+                          d_model=32, d_ff=64, vocab=128, remat="dots")
+kw = dict(global_batch=2, seq_len=8, lr=1e-3, device="cpu")
+with tempfile.TemporaryDirectory() as d, \
+        contextlib.redirect_stdout(io.StringIO()):
+    p_full, l_full = run_training(cfg, steps=4, **kw)
+    run_training(cfg, steps=2, ckpt_dir=d, **kw)
+    p_res, l_res = run_training(cfg, steps=4, ckpt_dir=d, **kw)
+    assert ckpt.latest_step(d) == 4
+    tpl = {"params": Model(cfg).abstract_params()}
+    back, _, _ = ckpt.restore(d, {"params": tpl["params"]}, device="cpu")
+assert l_res == l_full[2:]
+for a, b, c in zip(T.leaves(p_full), T.leaves(p_res),
+                   T.leaves(back["params"])):
+    assert torch.equal(a, b) and torch.equal(b, c)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
 assert not bad, bad
