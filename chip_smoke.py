@@ -206,7 +206,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      time, the engine built (K2), 16 items queried (K1) and graded (K3),
      each kernel's launches counted exactly in that window; then K1 (B =
      1), K2 and K3 against their plain versions at d = 2,048, timed
-     beside their bounds (rows `...[d=2048]` of the kernels line).
+     beside their bounds (rows `...[d=2048]` of the kernels line), and
+     beside K3 the f32 product alone at d = 2,048 (`matmul_ms`, as in
+     phase 5: a yardstick, not K3's function).
   11. the LM substrate's training path (`train_checks`): (a) `python -m
      repro_torch.launch.train --arch gemma-2b --full-config
      --global-batch 2 --seq-len 2048 --steps 12` under the import
@@ -226,6 +228,28 @@ Phases, each fatal on failure (exit code 1, no result line):
      bitwise, the checkpoint's bytes, save and restore seconds; (e)
      `python -m repro_torch.examples.train_lm` under the blocker: a loss
      drop > 0.3, ms a step. It launches no kernel of the port.
+  12. the LM substrate's sharding (`sharded_lm_checks`), each part in a
+     subprocess under the import blocker: (a) a single-rank NCCL process
+     group and a 1x1 ("data", "model") mesh on the card;
+     `launch.train.run_training` of gemma-2b at its published size, 4
+     steps of 2 x 2,048 tokens, on the mesh and without one from the
+     same seed, sharded, plain, plain, sharded: the loss streams, grad
+     norms and every final parameter bitwise equal, each leaf on its
+     `param_specs` placements (a mesh dim of one rank replicates); s a
+     step after the first, tokens/s, peak memory and the host time of a
+     step's call for each run, gemma-2b's
+     `model_flops_train` of a step and its share of the dense bf16 peak;
+     (b) gemma-2b at full width and 2 layers: 2 sharded steps with a
+     checkpoint, restored through `shardings=` onto the 1x1 mesh and
+     through `device=` without one, the next step's loss equal; (c),
+     once (a) and (b) have ended, `python -m repro_torch.launch.dryrun
+     --arch gemma-2b --both-meshes --engine` (fake process groups of 256
+     and 512 ranks, and the engine's build, query and ring at AMAZON_K on
+     flat meshes of as many shards; no card memory): exit 0, the
+     `roofline_report --md` table,
+     each cell's three terms, bottleneck and whether its bytes a device
+     fit 80 GB. The card runs only the 1x1 mesh: NCCL puts one rank on a
+     card, and the machine has one.
 
 `--digests SRC` runs only phase 4's data, its f32 build, K3 grading,
 phase 4c's reordered f32 engine and the storage tier's tables with the
@@ -3962,6 +3986,14 @@ def lm_kernel_rows(torch, ops, ref, query_mod, c4) -> list:
         c4["counts"]["k3_exact_ranks"], err, ms, pms,
         4 * (n4 * d4 + m4 * d4 + d4 + n4), 2 * n4 * m4 * d4,
         src + "exact_rank.cu"))
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    mm = matmul_ms(torch, u4, i4)
+    print(f"  f32 product alone, not K3's function: torch.matmul of the "
+          f"({n4}, {d4}) x ({d4}, {m4}) product, TF32 off, in user blocks "
+          f"of 32,768, scores written, summed over the blocks: {mm:.3f} ms "
+          f"({2 * n4 * m4 * d4 / mm / 1e9:.1f} TFLOP/s; K3 "
+          f"{2 * n4 * m4 * d4 / ms / 1e9:.1f} TFLOP/s, its plain version "
+          f"{pms:.3f} ms)")
     return rows
 
 
@@ -4330,6 +4362,289 @@ def train_checks(dev, *, full_args=TRAIN_ARGS, configs=None,
           f"step with its checkpoints; {times['e']:.1f} s")
     checks.append("e")
     return {"checks": checks, "times": times}
+
+
+# ------------------------------------- phase 12: sharded LM training
+SHARD_ARGS = {"arch": "gemma-2b", "full": True, "steps": 4, "batch": 2,
+              "seq": 2048, "ckpt_steps": 2}
+DRY_ARGS = ("--arch", "gemma-2b", "--both-meshes", "--engine")
+
+
+def sharded_lm_worker(spec: dict) -> None:
+    """Phase 12 (a) and (b) in a process of their own (a process group
+    is process-wide): a single-rank process group (NCCL on the card, gloo
+    for a CPU rehearsal) and a 1x1 ("data", "model") mesh over it.
+
+      (a) `run_training(spec's architecture, steps, global_batch, seq_len,
+          mesh=<1x1>)` and the same call with mesh=None from the same
+          seed, in the order sharded, plain, plain, sharded: the loss
+          streams, the grad norms and every final parameter leaf bitwise
+          equal in all four, every leaf on its `param_specs` placements;
+          from `run_training`'s `record`, s a step after the first (up to
+          the loss read on the host), tokens/s and peak memory of each
+          run, the host time of a step's call (before the card is waited
+          for), `model_flops_train` of a step and its share of the dense
+          bf16 peak (`launch.mesh.H100_SXM`);
+      (b) the architecture at full width and `reduced_depth` trained
+          `ckpt_steps` steps on the mesh with a checkpoint, restored
+          through `shardings=` onto the 1x1 mesh and through `device=`
+          without one: one more step from each gives the same loss.
+
+    Prints `phase12: {json}` last; any failed check raises."""
+    import dataclasses
+    import shutil
+    import socket
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config, reduced, reduced_depth
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import H100_SXM
+    from repro_torch.launch.roofline import model_flops_train
+    from repro_torch.models.model import Model
+    from repro_torch.models.sharding import distribute, placements_for, \
+        rules_for
+    from repro_torch.models.transformer import leaves, tree_map
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import AdamWConfig, OptState, \
+        adamw_init
+    from repro_torch.train.trainer import make_train_step
+
+    dev = torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize()) if cuda else (lambda: None)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    kw = dict(init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    if cuda:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", device_id=torch.device("cuda", 0),
+                                **kw)
+    else:
+        dist.init_process_group("gloo", **kw)
+    backend = dist.get_backend()
+    check(backend == ("nccl" if cuda else "gloo"), f"backend {backend}")
+    mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data",
+                                                               "model"))
+    base = get_config(spec["arch"])
+    cfg = base if spec["full"] else reduced(base)
+    steps, gb, seq = spec["steps"], spec["batch"], spec["seq"]
+    rec = {"backend": backend}
+
+    # (a) sharded, plain, plain, sharded through the launcher: each
+    # variant timed once first and once last, nothing else on the host
+    order = ("sharded", "plain", "plain", "sharded")
+    runs = {name: [] for name in order}
+    first = None
+    for name in order:
+        m = mesh if name == "sharded" else None
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        got = {}
+        params, losses = LT.run_training(
+            cfg, steps=steps, global_batch=gb, seq_len=seq, mesh=m,
+            ckpt_every=10**6, log_every=10**6, device=dev, record=got)
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+        if m is not None and "placements" not in rec:
+            specs = Model(cfg).param_specs(rules_for(cfg, mesh,
+                                                     batch_size=gb))
+            placed = tree_map(lambda p, sp: tuple(p.placements)
+                              == placements_for(mesh, sp), params, specs)
+            check(all(leaves(placed)), "(a) a parameter leaf is not on its "
+                  "param_specs placements")
+            rec["placements"] = sorted({str(tuple(p.placements))
+                                        for p in leaves(params)})
+        local = lambda p: (p.to_local() if m is not None else p)
+        final = [local(p).detach().cpu() for p in leaves(params)]
+        if first is None:
+            first = (losses, got["grad_norm"], final)
+        else:
+            check(losses == first[0], f"(a) {name} losses {losses} against "
+                  f"{first[0]}")
+            check(got["grad_norm"] == first[1], f"(a) {name} grad norms "
+                  f"{got['grad_norm']} against {first[1]}")
+            check(all(torch.equal(a, b) for a, b in zip(final, first[2])),
+                  f"(a) a final parameter leaf of a {name} run differs from "
+                  "the first run's")
+        del params, final
+        after = lambda xs: sum(xs[1:]) / max(len(xs) - 1, 1)
+        runs[name].append(dict(s_step=after(got["step_s"]),
+                               first_s=got["step_s"][0],
+                               host_s=after(got["call_s"]), peak_gb=peak))
+    del first
+    a_losses, a_gnorm = losses, got["grad_norm"]
+    tokens = gb * seq
+    mf = model_flops_train(cfg, Model(cfg).abstract_params(), tokens)
+    peak_flops = H100_SXM["peak_bf16_flops"]
+    for rs in runs.values():
+        for r in rs:
+            r["tokens_s"] = tokens / r["s_step"]
+            r["mfu"] = mf / r["s_step"] / peak_flops
+    rec.update(a=runs, order=order, model_flops=mf)
+    peak = lambda r: ("not measured (CPU)" if r["peak_gb"] is None
+                      else f"{r['peak_gb']:.2f} GB")
+    print(f"  (a) {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{steps} steps of {gb} x {seq} tokens through run_training, "
+          f"{', '.join(order)} (a 1x1 {backend} mesh or none): losses "
+          + " ".join(f"{x:.6f}" for x in a_losses)
+          + f" and grad norms {' '.join(f'{x:.6f}' for x in a_gnorm)} "
+          f"bitwise equal in all four, every final leaf bitwise equal, "
+          f"placements {rec['placements']}")
+    for i, name in enumerate(order):
+        r = runs[name][order[:i].count(name)]
+        print(f"  (a) run {i + 1}, {name}: first step {r['first_s']:.2f} s, "
+              f"then {r['s_step']:.3f} s a step, {r['tokens_s']:,.0f} "
+              f"tokens/s, peak {peak(r)}, host time of a step's call "
+              f"{r['host_s'] * 1e3:.1f} ms; model_flops_train {mf:.4e} a "
+              f"step = {r['mfu'] * 100:.1f}% of the dense bf16 peak "
+              f"({peak_flops / 1e12:.0f} TFLOP/s)")
+    extra = lambda k: (sum(r[k] for r in runs["sharded"])
+                       - sum(r[k] for r in runs["plain"])) / 2
+    print(f"  (a) the mesh adds {extra('host_s') * 1e3:.1f} ms of host time "
+          f"a step and {extra('s_step') * 1e3:.1f} ms of wall time (means "
+          f"of two runs each)")
+
+    # (b) a checkpoint from the sharded run, restored two ways
+    cfgb = reduced_depth(base) if spec["full"] else cfg
+    model = Model(cfgb)
+    k = spec["ckpt_steps"]
+    tmp = tempfile.mkdtemp(dir=spec.get("tmp"))
+    try:
+        t0 = time.perf_counter()
+        LT.run_training(cfgb, steps=k, global_batch=gb, seq_len=seq,
+                        mesh=mesh, ckpt_dir=tmp, ckpt_every=10**6,
+                        log_every=10**6, device=dev)
+        sync()
+        run_s = time.perf_counter() - t0
+        rules = rules_for(cfgb, mesh, batch_size=gb)
+        abstract = model.abstract_params()
+        pshard = tree_map(lambda _, sp: (mesh, placements_for(mesh, sp)),
+                          abstract, model.param_specs(rules))
+        tpl = {"params": abstract, "opt": adamw_init(abstract)}
+        batch = TokenPipeline(PipelineConfig(
+            vocab=cfgb.vocab, seq_len=seq, global_batch=gb),
+            device=dev).batch_at(k)
+        got = {}
+        for name in ("sharded", "plain"):
+            t0 = time.perf_counter()
+            if name == "sharded":
+                state, at, _ = ckpt.restore(tmp, tpl, shardings={
+                    "params": pshard, "opt": OptState(
+                        mu=pshard, nu=pshard,
+                        step=(mesh, placements_for(mesh, ())))})
+                bspec = rules.spec("batch", None)
+                bt = {n: distribute(v, mesh, bspec) for n, v in batch.items()}
+                step = make_train_step(model, AdamWConfig(), rules)
+            else:
+                state, at, _ = ckpt.restore(tmp, tpl, device=dev)
+                bt = batch
+                step = make_train_step(model, AdamWConfig())
+            sync()
+            restore_s = time.perf_counter() - t0
+            check(at == k, f"(b) restored step {at}, expected {k}")
+            _, _, m = step(state["params"], state["opt"], bt)
+            got[name] = (float(m["loss"]), restore_s)
+            del state, m
+            if cuda:
+                torch.cuda.empty_cache()
+        nbytes = os.path.getsize(os.path.join(tmp, f"step_{k:08d}",
+                                              "arrays.npz"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(got["sharded"][0] == got["plain"][0], f"(b) the step after the "
+          f"restore: loss {got['sharded'][0]} on the mesh, "
+          f"{got['plain'][0]} without")
+    rec["b"] = {"loss": got["plain"][0], "bytes": nbytes, "run_s": run_s,
+                "restore_s": {n: v[1] for n, v in got.items()}}
+    print(f"  (b) {cfgb.name} at {cfgb.n_layers} layers, d_model "
+          f"{cfgb.d_model}: {k} sharded steps with a checkpoint of "
+          f"{nbytes:,} bytes in {run_s:.1f} s; restored through shardings= "
+          f"onto the 1x1 mesh in {got['sharded'][1]:.2f} s and through "
+          f"device= in {got['plain'][1]:.2f} s; the next step's loss "
+          f"{got['plain'][0]:.6f} on both")
+    dist.destroy_process_group()
+    print("phase12: " + json.dumps(rec), flush=True)
+
+
+def sharded_lm_checks(dev, *, spec=None, dry_args=DRY_ARGS,
+                      timeout=1200.0) -> dict:
+    """Phase 12: the LM substrate's sharding, one part after the other, so
+    that nothing else loads the host while (a) is timed:
+
+      (a), (b) `sharded_lm_worker` in a subprocess under the import
+          blocker (its doc);
+      (c) `python -m repro_torch.launch.dryrun` with `dry_args` (gemma-2b
+          on the 16x16 and 2x16x16 production meshes of a fake process
+          group, and the row-sharded engine's cells at AMAZON_K on flat
+          meshes of 256 and 512 shards; no card memory) and `--out` a
+          temporary JSON, under the import blocker: exit 0; its records'
+          table
+          (`roofline_report --md`), and for each cell the three terms,
+          the bottleneck and whether `bytes_per_device` fits 80 GB.
+    """
+    import shutil
+    import tempfile
+    spec = dict(SHARD_ARGS if spec is None else spec, device=dev.type)
+    checks = []
+    t0 = time.perf_counter()
+    code = ("import json, sys\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "import chip_smoke\n"
+            f"chip_smoke.sharded_lm_worker(json.loads({json.dumps(spec)!r}))\n")
+    out = run_blocked("-c", code, timeout=timeout)
+    for line in out.stdout.splitlines():
+        if line.startswith("  ("):
+            print(line)
+    check(out.returncode == 0, f"(a)/(b) exit {out.returncode}: "
+          f"{out.stderr[-4000:]}")
+    rep = runner_report(out.stdout)
+    check(rep["leaked"] == [], f"(a)/(b) loaded {rep['leaked']}")
+    rec = json.loads([x for x in out.stdout.splitlines()
+                      if x.startswith("phase12: ")][-1][len("phase12: "):])
+    checks += ["a", "b"]
+    print(f"  (a)/(b) {time.perf_counter() - t0:.1f} s with the process "
+          f"start, peak {rep['peak_bytes']} bytes")
+
+    tmp = tempfile.mkdtemp()
+    out_json = os.path.join(tmp, "dryrun.json")
+    t0 = time.perf_counter()
+    dry = run_blocked("repro_torch.launch.dryrun", *dry_args, "--out",
+                      out_json, timeout=timeout)
+    rc = dry.returncode
+    dry_s = time.perf_counter() - t0
+    check(rc == 0, f"(c) the dry run's exit {rc}: " + dry.stderr[-4000:])
+    rep = runner_report(dry.stdout)
+    check(rep["leaked"] == [], f"(c) loaded {rep['leaked']}")
+    check(rep["peak_bytes"] is None, "(c) the dry run used the card")
+    from repro_torch.launch.roofline_report import rows_from, to_markdown
+    with open(out_json) as f:
+        records = json.load(f)
+    check(records and all(r["status"] in ("OK", "SKIP") for r in records),
+          "(c) a cell of the dry run failed")
+    print("  (c) the dry run's table (roofline_report --md):")
+    for line in to_markdown(rows_from(records)).splitlines():
+        print("    " + line)
+    for r in records:
+        if r["status"] != "OK":
+            continue
+        roof = r["roofline"]
+        print(f"  (c) [{r['mesh']}] {r['arch']} x {r['cell']}: compute "
+              f"{roof['compute_s']:.4g} s, memory {roof['memory_s']:.4g} s, "
+              f"collective {roof['collective_s']:.4g} s -> "
+              f"{roof['bottleneck']}-bound; {r['bytes_per_device'] / 1e9:.2f}"
+              f" GB a device ({r['arg_bytes'] / 1e9:.2f} arguments, "
+              f"{r['temp_bytes'] / 1e9:.2f} temporaries): "
+              + ("fits" if r["bytes_per_device"] <= 80e9 else "does not fit")
+              + " 80 GB" + (f"; traced in {r['lower_s'] + r['compile_s']:.1f}"
+                            " s" if "compile_s" in r else ""))
+    print(f"  (c) {len(records)} records in {dry_s:.1f} s")
+    shutil.rmtree(tmp, ignore_errors=True)
+    checks.append("c")
+    return {"checks": checks, "record": rec, "dryrun": records}
 
 
 def digests_of(torch, exact_mod, rt_mod, ReverseKRanksEngine,
@@ -5729,6 +6044,20 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
           "phase 11 did not run every check")
     print(f"  phase 11: checks abcde passed, "
           f"{time.perf_counter() - t11:.1f} s; {nvidia_smi_line()}")
+
+    # 12. the LM substrate's sharding: the sharded step on a 1x1 mesh
+    # against the plain one, elastic restore, the dry run
+    print("phase: the LM substrate's sharding (gemma-2b's sharded step on a "
+          "1x1 NCCL mesh against the unsharded one, a checkpoint restored "
+          "both ways, the dry run of gemma-2b's cells on the production "
+          "meshes)")
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    report12 = sharded_lm_checks(dev)
+    check(report12["checks"] == list("abc"),
+          "phase 12 did not run every check")
+    print(f"  phase 12: checks abc passed, "
+          f"{time.perf_counter() - t12:.1f} s; {nvidia_smi_line()}")
     return out
 
 

@@ -220,7 +220,7 @@ def build_sharded(users: torch.Tensor, items: torch.Tensor,
     positions = positions.to(device=lead, dtype=torch.int64)
     samples = _to(items, lead)[order[positions]].contiguous()
     weights = weights.to(device=lead, dtype=torch.float32)
-    max_norm = norms[order[0]]
+    max_norm = norms.index_select(0, order[:1])[0]   # no host read
     packed = []
     for dev, u in zip(mesh, shard_rows(users, mesh)):
         with _on(dev):

@@ -1,5 +1,6 @@
 """Launchers of the port: the serving entry point (`launch.serve`, run as
-`python -m repro_torch.launch.serve`) and the training launcher
-(`launch.train`, `python -m repro_torch.launch.train`). The reference's
-multi-pod dry-run, mesh and roofline launchers come with the port's
-sharding (ROADMAP queue 1 item 14)."""
+`python -m repro_torch.launch.serve`), the training launcher
+(`launch.train`), the production mesh (`launch.mesh`), the dry run over
+the (architecture x input shape x mesh) cells (`launch.dryrun`) with its
+three-term roofline (`launch.roofline`), and the roofline table
+(`launch.roofline_report`)."""

@@ -11,16 +11,21 @@ reference asks for a float32 result (`preferred_element_type`), both
 operands are widened to float32 first, which gives the exact products
 and float32 sums. Norms and softmax stay float32.
 
-The reference's `shard(...)` annotations are no-ops without a mesh and
-are left out. Both of its MoE dispatches are here, chosen by the module
+The reference's `shard(...)` annotations sit at its sites: the identity
+without active rules (`sharding.shard`), a DTensor redistribution under
+them. Both of its MoE dispatches are here, chosen by the module
 constant `MOE_DISPATCH` as in the reference; they share `moe_route`.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.sharding import is_sharded, on_replicas, \
+    per_head_shard, shard, split_dim, write_slot
 
 _NEG = -1e30        # the reference's mask value
 
@@ -101,6 +106,14 @@ def init_attention(g, cfg, lead=(), dev=None) -> dict:
     return p
 
 
+def _heads(y: torch.Tensor, axis: str) -> torch.Tensor:
+    """A (B, S, heads·hd) projection sharded as its heads axis will be:
+    under a mesh whose model axis does not divide the heads, DTensor
+    cannot split a sharded last dim into (heads, hd), so it is replicated
+    first, as GSPMD reshards it. The identity without rules."""
+    return shard(y, "batch", None, axis)
+
+
 def _qkv(p: dict, x: torch.Tensor, cfg, positions, *, use_rope: bool = True):
     """Project + reshape + (qk-norm) + RoPE. Returns q (B,S,KV,G,hd),
     k/v (B,S,KV,hd)."""
@@ -108,16 +121,20 @@ def _qkv(p: dict, x: torch.Tensor, cfg, positions, *, use_rope: bool = True):
     kv, hd = cfg.n_kv_heads, cfg.hd
     g = cfg.n_heads // kv
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, S, kv * g, hd)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, kv, hd)
-    v = (x @ p["wv"].to(dt)).reshape(B, S, kv, hd)
+    # a head split of a sharded projection needs whole heads on each rank
+    q = _heads(x @ p["wq"].to(dt), "heads").reshape(B, S, kv * g, hd)
+    k = _heads(x @ p["wk"].to(dt), "kv").reshape(B, S, kv, hd)
+    v = _heads(x @ p["wv"].to(dt), "kv").reshape(B, S, kv, hd)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
     if use_rope and positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    return q.reshape(B, S, kv, g, hd), k, v
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv", None)
+    v = shard(v, "batch", None, "kv", None)
+    return split_dim(q, 2, (kv, g)), k, v
 
 
 def _attend_direct(q, k, v, mask) -> torch.Tensor:
@@ -184,11 +201,15 @@ def attention(p: dict, x: torch.Tensor, cfg, positions, *,
             mask = pos[:, None] >= pos[None, :]
             if window is not None:
                 mask = mask & (pos[:, None] - pos[None, :] < window)
-        out = _attend_direct(q, k, v, mask)
+        out = per_head_shard(_attend_direct, q, k, v, mask)
     else:
-        out = _attend_chunked(q, k, v, causal=causal, window=window,
-                              chunk=chunk)
-    out = out.reshape(B, S, cfg.q_dim)
+        out = per_head_shard(functools.partial(
+            _attend_chunked, causal=causal, window=window, chunk=chunk),
+            q, k, v)
+    # whole heads first: the gradient of a q_dim sharding that splits
+    # heads could not be viewed back as heads
+    out = _heads(out.reshape(B, S, cfg.q_dim), "heads")
+    out = shard(out, "batch", None, "qdim")
     return out @ p["wo"].to(x.dtype)
 
 
@@ -211,17 +232,28 @@ def attention_decode(p: dict, x: torch.Tensor, cfg, cache_k, cache_v,
                            device=x.device)
     q, k, v = _qkv(p, x, cfg, positions, use_rope=use_rope)
     slot = cache_len % T
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    write_slot(cache_k, slot, k[:, 0].to(cache_k.dtype))
+    write_slot(cache_v, slot, v[:, 0].to(cache_v.dtype))
+    # where the KV heads cannot span the model axis the cache's TIME dim
+    # is sharded over it ("kv_seq"): scores are computed on local slices
+    # and the softmax and contraction reduce across them
+    cache_k = shard(cache_k, "batch", "kv_seq", "kv", None)
+    cache_v = shard(cache_v, "batch", "kv_seq", "kv", None)
     valid = torch.arange(T, device=x.device) <= cache_len
     if cache_len >= T:
         valid[:] = True
-    scores = _mm32("bskgh,btkh->bkgst", q, cache_k.to(q.dtype)) \
-        * cfg.hd ** -0.5
-    scores = torch.where(valid, scores, _NEG)
-    probs = torch.softmax(scores, dim=-1)
-    out = _mm32("bkgst,btkh->bskgh", probs.to(q.dtype),
-                cache_v.to(q.dtype))
+
+    def core(q, cache_k, cache_v, valid):
+        scores = _mm32("bskgh,btkh->bkgst", q, cache_k.to(q.dtype)) \
+            * cfg.hd ** -0.5
+        scores = torch.where(valid, scores, _NEG)
+        scores = shard(scores, "batch", "kv", None, None, "kv_seq")
+        probs = torch.softmax(scores, dim=-1)
+        return _mm32("bkgst,btkh->bskgh", probs.to(q.dtype),
+                     cache_v.to(q.dtype))
+
+    out = (core(q, cache_k, cache_v, valid) if is_sharded(cache_k, 1)
+           else per_head_shard(core, q, cache_k, cache_v, valid))
     out = out.reshape(B, 1, cfg.q_dim).to(x.dtype)
     return out @ p["wo"].to(x.dtype), cache_k, cache_v
 
@@ -232,17 +264,21 @@ def cross_attention(p: dict, x: torch.Tensor, cfg, enc_k,
     B, S, _ = x.shape
     kv, hd = cfg.n_kv_heads, cfg.hd
     g = cfg.n_heads // kv
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, kv, g, hd)
-    out = _attend_direct(q, enc_k.to(x.dtype), enc_v.to(x.dtype), None)
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(x.dtype)
+    q = split_dim(_heads(x @ p["wq"].to(x.dtype), "heads"), 2, (kv, g, hd))
+    out = per_head_shard(_attend_direct, q, enc_k.to(x.dtype),
+                         enc_v.to(x.dtype), None)
+    return _heads(out.reshape(B, S, cfg.q_dim), "heads") \
+        @ p["wo"].to(x.dtype)
 
 
 def encoder_kv(p: dict, enc_out: torch.Tensor, cfg):
     """Precompute cross-attention K/V from encoder output."""
     B, Te, _ = enc_out.shape
     kv, hd = cfg.n_kv_heads, cfg.hd
-    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(B, Te, kv, hd)
-    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(B, Te, kv, hd)
+    k = _heads(enc_out @ p["wk"].to(enc_out.dtype), "kv").reshape(
+        B, Te, kv, hd)
+    v = _heads(enc_out @ p["wv"].to(enc_out.dtype), "kv").reshape(
+        B, Te, kv, hd)
     return k, v
 
 
@@ -269,6 +305,7 @@ def mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
         h = actfn(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
     else:                                   # plain 2-matrix MLP (whisper)
         h = gelu_tanh(x @ p["w_up"].to(dt))
+    h = shard(h, "batch", None, "hidden")
     return h @ p["w_down"].to(dt)
 
 
@@ -306,24 +343,33 @@ def moe_route(p: dict, xg: torch.Tensor, cfg):
     (G, K) f32, each assignment's expert (G, K) and its destination row
     `expert·C + position` in the (E·C, d) expert buffer, E·C where the
     expert's capacity C is full (dropped). Positions fill slot 0 first,
-    then slot 1, ..., each in token order."""
+    then slot 1, ..., each in token order.
+
+    Under a mesh the stable sort, the cumulative sums across the group
+    and the column writes have no DTensor sharding rule: the routing runs
+    on replicas of xg and the router (`sharding.on_replicas`)."""
     G = xg.shape[0]
     E, K = cfg.n_experts, cfg.experts_per_tok
     C = max(int(G * K * cfg.capacity_factor / E), 1)
-    logits = (xg @ p["router"].to(xg.dtype)).float()
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = top_k(probs, K)                  # (G, K)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
-    pos = torch.zeros((G, K), dtype=torch.int64, device=xg.device)
-    fill = torch.zeros((E,), dtype=torch.int64, device=xg.device)
-    for slot in range(K):                                    # K ≤ 6
-        onehot = F.one_hot(expert_idx[:, slot], E)
-        p_slot = fill[None, :] + torch.cumsum(onehot, 0) - onehot
-        pos[:, slot] = (p_slot * onehot).sum(1)
-        fill = fill + (onehot * ((p_slot < C) & (onehot > 0))).sum(0)
-    keep = pos < C
-    dest = torch.where(keep, expert_idx * C + pos, E * C)
+
+    def route(xg, router):
+        logits = (xg @ router.to(xg.dtype)).float()
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, expert_idx = top_k(probs, K)              # (G, K)
+        gate_vals = gate_vals / torch.clamp(
+            gate_vals.sum(-1, keepdim=True), min=1e-9)
+        pos = torch.zeros((G, K), dtype=torch.int64, device=xg.device)
+        fill = torch.zeros((E,), dtype=torch.int64, device=xg.device)
+        for slot in range(K):                                # K ≤ 6
+            onehot = F.one_hot(expert_idx[:, slot], E)
+            p_slot = fill[None, :] + torch.cumsum(onehot, 0) - onehot
+            pos[:, slot] = (p_slot * onehot).sum(1)
+            fill = fill + (onehot * ((p_slot < C) & (onehot > 0))).sum(0)
+        keep = pos < C
+        dest = torch.where(keep, expert_idx * C + pos, E * C)
+        return gate_vals, keep, dest
+
+    gate_vals, keep, dest = on_replicas(route, xg, p["router"])
     return gate_vals, keep, dest, C
 
 
@@ -336,12 +382,20 @@ def _moe_group(p: dict, xg: torch.Tensor, cfg) -> torch.Tensor:
     E = cfg.n_experts
     dt = xg.dtype
     gate_vals, keep, dest, C = moe_route(p, xg, cfg)
-    hot = F.one_hot(dest, E * C + 1)[..., :E * C]            # (G, K, E·C)
-    dispatch = hot.sum(1).to(dt).reshape(G, E, C)
-    combine = (hot * (gate_vals * keep)[..., None]).sum(1).reshape(G, E, C)
+
+    def tensors(gate_vals, keep, dest):              # no rule: one_hot
+        hot = F.one_hot(dest, E * C + 1)[..., :E * C]        # (G, K, E·C)
+        dispatch = hot.sum(1).to(dt).reshape(G, E, C)
+        combine = (hot * (gate_vals * keep)[..., None]).sum(1).reshape(
+            G, E, C)
+        return dispatch, combine
+
+    dispatch, combine = on_replicas(tensors, gate_vals, keep, dest)
     xin = _mm32("gec,gd->ecd", dispatch, xg).to(dt)
+    xin = shard(xin, "experts", None, None)
     h = F.silu(torch.einsum("ecd,edf->ecf", xin, p["w_gate"].to(dt))) \
         * torch.einsum("ecd,edf->ecf", xin, p["w_up"].to(dt))
+    h = shard(h, "experts", None, None)   # EP owns the axis
     y = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(dt))
     return _mm32("gec,ecd->gd", combine.to(dt), y).to(dt)
 
@@ -357,14 +411,21 @@ def _moe_group_scatter(p: dict, xg: torch.Tensor, cfg) -> torch.Tensor:
     dt = xg.dtype
     gate_vals, keep, dest, C = moe_route(p, xg, cfg)
     flat = dest.reshape(-1)
-    kept = flat < E * C
-    buf = torch.zeros((E * C, d), dtype=dt, device=xg.device)
-    # kept destinations are distinct: a plain scatter is the reference's
-    # scatter-add into zeros
-    buf[flat[kept]] = xg.repeat_interleave(K, dim=0)[kept]
-    xin = buf.reshape(E, C, d)
+
+    def scatter(xg, flat):
+        # kept destinations are distinct: a plain scatter is the
+        # reference's scatter-add into zeros; dropped assignments land on
+        # one more row, which is cut off (no boolean mask, whose
+        # data-dependent shape fake tensors cannot take)
+        buf = torch.zeros((E * C + 1, d), dtype=dt, device=xg.device)
+        buf[flat] = xg.repeat_interleave(K, dim=0)
+        return buf[:E * C]
+
+    buf = on_replicas(scatter, xg, flat)       # no DTensor rule
+    xin = shard(buf.reshape(E, C, d), "experts", None, None)
     h = F.silu(torch.bmm(xin, p["w_gate"].to(dt))) \
         * torch.bmm(xin, p["w_up"].to(dt))
+    h = shard(h, "experts", None, None)
     y = torch.bmm(h, p["w_down"].to(dt)).reshape(E * C, d)
     gathered = y[torch.clamp(flat, max=E * C - 1)].reshape(G, K, d)
     w = (gate_vals * keep).to(dt)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _normal, gelu_tanh, init_norm
+from repro_torch.models.sharding import per_shard, shard
 
 
 # ------------------------------------------------------------------- RG-LRU
@@ -77,19 +78,28 @@ def _rglru_coeffs(p: dict, u: torch.Tensor):
     return a, b
 
 
-def rglru_block(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Full-sequence RG-LRU block (prefill). x: (B,S,D)."""
-    dt = x.dtype
-    u = x @ p["w_x"].to(dt)
-    u = _causal_conv(u, p["conv_w"].to(dt), p["conv_b"].to(dt))
-    a, b = _rglru_coeffs(p, u)
+def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t·h_{t-1} + b_t over dim 1 from h_0 = 0, sequentially."""
     h = torch.empty_like(b)                                  # (B,S,R) f32
     state = torch.zeros_like(b[:, 0])
     for t in range(b.shape[1]):
         state = a[:, t] * state + b[:, t]
         h[:, t] = state
+    return h
+
+
+def rglru_block(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Full-sequence RG-LRU block (prefill). x: (B,S,D)."""
+    dt = x.dtype
+    u = x @ p["w_x"].to(dt)
+    u = shard(u, "batch", None, "rnn")
+    u = _causal_conv(u, p["conv_w"].to(dt), p["conv_b"].to(dt))
+    a, b = _rglru_coeffs(p, u)
+    # independent along the batch and the width: each rank scans its own
+    h = per_shard(_linear_scan, ("b.r", "b.r"), "b.r", a, b)
     gate = gelu_tanh((x @ p["w_gate"].to(dt)).float())
     y = (h * gate).to(dt)
+    y = shard(y, "batch", None, "rnn")
     return y @ p["w_out"].to(dt)
 
 
@@ -167,9 +177,10 @@ def _tmix_inputs(p: dict, x: torch.Tensor, xx: torch.Tensor, cfg):
     B, S, d = x.shape
     H, hd = cfg.n_heads, cfg.hd
     mix = lambda mu: x + (xx - x) * mu.to(dt)
-    r = (mix(p["mu_r"]) @ p["w_r"].to(dt)).reshape(B, S, H, hd)
-    k = (mix(p["mu_k"]) @ p["w_k"].to(dt)).reshape(B, S, H, hd)
-    v = (mix(p["mu_v"]) @ p["w_v"].to(dt)).reshape(B, S, H, hd)
+    heads = lambda y: shard(y, "batch", None, "heads").reshape(B, S, H, hd)
+    r = heads(mix(p["mu_r"]) @ p["w_r"].to(dt))
+    k = heads(mix(p["mu_k"]) @ p["w_k"].to(dt))
+    v = heads(mix(p["mu_v"]) @ p["w_v"].to(dt))
     g = F.silu(mix(p["mu_g"]) @ p["w_g"].to(dt))
     xw = mix(p["mu_w"]).float()
     dlog = torch.tanh(xw @ p["lora_a"].float()) \
@@ -222,6 +233,9 @@ def wkv_chunked(r, k, v, logw, u, s0, chunk: int = 64):
     return torch.cat(ys, dim=2), s
 
 
+_WKV = ("bh..",) * 4 + ("h.", "bh..")     # r, k, v, logw, u, s0
+
+
 def rwkv_tmix(p: dict, x: torch.Tensor, cfg, chunk: int = 64
               ) -> torch.Tensor:
     """Full-sequence RWKV-6 time mix. x: (B,S,D)."""
@@ -231,8 +245,10 @@ def rwkv_tmix(p: dict, x: torch.Tensor, cfg, chunk: int = 64
     r, k, v, g, logw = _tmix_inputs(p, x, _shift(x), cfg)
     tr = lambda t: t.transpose(1, 2).float()
     s0 = torch.zeros((B, H, hd, hd), device=x.device)
-    y, _ = wkv_chunked(tr(r), tr(k), tr(v), tr(logw),
-                       p["u"].reshape(H, hd), s0, chunk)
+    # independent along the batch and the heads: each rank scans its own
+    y = per_shard(lambda *a: wkv_chunked(*a, chunk)[0], _WKV,
+                  "bh..", tr(r), tr(k), tr(v), tr(logw),
+                  p["u"].reshape(H, hd), s0)
     y = y.transpose(1, 2).reshape(B, S, d)                    # (B,S,D)
     y = _head_group_norm(p["ln_out"]["scale"], y, H, cfg.norm_eps)
     return (y.to(dt) * g) @ p["w_o"].to(dt)
@@ -253,9 +269,15 @@ def rwkv_tmix_decode(p: dict, x: torch.Tensor, cfg, s: torch.Tensor,
     rf, kf, vf = (t[:, 0].reshape(B, H, hd).float() for t in (r, k, v))
     w = torch.exp(logw[:, 0].reshape(B, H, hd))               # decay (0,1)
     u = p["u"].reshape(H, hd)
-    kv = kf[..., :, None] * vf[..., None, :]                  # (B,H,hd,hd)
-    y = torch.einsum("bhd,bhde->bhe", rf, s + u[None, :, :, None] * kv)
-    s_new = w[..., None] * s + kv
+
+    def step(rf, kf, vf, w, u, s):
+        kv = kf[..., :, None] * vf[..., None, :]              # (B,H,hd,hd)
+        y = torch.einsum("bhd,bhde->bhe", rf, s + u[None, :, :, None] * kv)
+        return y, w[..., None] * s + kv
+
+    # independent along the batch and the heads: each rank steps its own
+    y, s_new = per_shard(step, ("bh.", "bh.", "bh.", "bh.", "h.", "bh.."),
+                         ("bh.", "bh.."), rf, kf, vf, w, u, s)
     y = _head_group_norm(p["ln_out"]["scale"], y.reshape(B, 1, d), H,
                          cfg.norm_eps)
     out = (y.to(x.dtype) * g) @ p["w_o"].to(x.dtype)
@@ -269,5 +291,6 @@ def rwkv_cmix(p: dict, x: torch.Tensor, cfg,
     xx = _shift(x) if x_prev is None else x_prev[:, None, :].to(dt)
     mix = lambda mu: x + (xx - x) * mu.to(dt)
     kk = torch.square(torch.relu(mix(p["mu_k"]) @ p["w_k"].to(dt)))
+    kk = shard(kk, "batch", None, "hidden")
     rr = torch.sigmoid(mix(p["mu_r"]) @ p["w_r"].to(dt))
     return rr * (kk @ p["w_v"].to(dt))

@@ -29,6 +29,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import is_sharded, on_replicas, \
+    pick_last, shard, take_rows
 
 
 def _norm(cfg):
@@ -68,39 +70,56 @@ def _init_block(block: str, g, cfg: ModelConfig, lead, dev) -> dict:
     raise ValueError(f"unknown block {block!r}")
 
 
+def _resid(y: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output as the residual stream holds it: sharded on the
+    batch, replicated on the model axis (the embedding's layout). Under a
+    mesh this is the all-reduce after a row-parallel product; without it
+    DTensor would carry partial sums into the next norm. The identity
+    without rules."""
+    return shard(y, "batch", None, None)
+
+
 def _apply_block(block: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
                  positions, *, enc_kv=None) -> torch.Tensor:
     """Full-sequence (prefill) application of one block."""
     norm = _norm(cfg)
     if block in ("attn_mlp", "attn_moe", "local_attn"):
         window = cfg.local_window if block == "local_attn" else None
-        x = x + L.attention(p["attn"], norm(p["ln1"], x, cfg.norm_eps), cfg,
-                            positions, causal=True, window=window)
+        x = x + _resid(L.attention(p["attn"], norm(p["ln1"], x,
+                                                   cfg.norm_eps), cfg,
+                                   positions, causal=True, window=window))
         h = norm(p["ln2"], x, cfg.norm_eps)
         ff = L.moe(p["moe"], h, cfg) if block == "attn_moe" else \
             L.mlp(p["mlp"], h, cfg)
-        return x + ff
+        return x + _resid(ff)
     if block == "rwkv":
-        x = x + R.rwkv_tmix(p["tmix"], norm(p["ln1"], x, cfg.norm_eps), cfg)
-        return x + R.rwkv_cmix(p["cmix"], norm(p["ln2"], x, cfg.norm_eps),
-                               cfg)
+        x = x + _resid(R.rwkv_tmix(p["tmix"], norm(p["ln1"], x,
+                                                   cfg.norm_eps), cfg))
+        return x + _resid(R.rwkv_cmix(p["cmix"], norm(p["ln2"], x,
+                                                      cfg.norm_eps), cfg))
     if block == "rglru":
-        x = x + R.rglru_block(p["rglru"], norm(p["ln1"], x, cfg.norm_eps),
-                              cfg)
-        return x + L.mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_eps), cfg)
+        x = x + _resid(R.rglru_block(p["rglru"], norm(p["ln1"], x,
+                                                      cfg.norm_eps), cfg))
+        return x + _resid(L.mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_eps),
+                                cfg))
     if block == "enc_block":
-        x = x + L.attention(p["attn"], norm(p["ln1"], x, cfg.norm_eps), cfg,
-                            None, causal=False, use_rope=False)
-        return x + L.mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_eps), cfg)
+        x = x + _resid(L.attention(p["attn"], norm(p["ln1"], x,
+                                                   cfg.norm_eps), cfg,
+                                   None, causal=False, use_rope=False))
+        return x + _resid(L.mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_eps),
+                                cfg))
     if block == "dec_block":
-        x = x + L.attention(p["attn"], norm(p["ln1"], x, cfg.norm_eps), cfg,
-                            None, causal=True, use_rope=False)
+        x = x + _resid(L.attention(p["attn"], norm(p["ln1"], x,
+                                                   cfg.norm_eps), cfg,
+                                   None, causal=True, use_rope=False))
         # enc_kv carries the raw encoder output; each decoder layer projects
         # it with its own wk/wv (whisper-style per-layer cross attention).
         ek, ev = L.encoder_kv(p["xattn"], enc_kv, cfg)
-        x = x + L.cross_attention(p["xattn"], norm(p["lnx"], x,
-                                                   cfg.norm_eps), cfg, ek, ev)
-        return x + L.mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_eps), cfg)
+        x = x + _resid(L.cross_attention(p["xattn"], norm(p["lnx"], x,
+                                                          cfg.norm_eps),
+                                         cfg, ek, ev))
+        return x + _resid(L.mlp(p["mlp"], norm(p["ln2"], x, cfg.norm_eps),
+                                cfg))
     raise ValueError(f"unknown block {block!r}")
 
 
@@ -250,19 +269,19 @@ def encode(params: dict, frames: torch.Tensor,
 
 def _embed(params, tokens, cfg, pos_offset: int = 0) -> torch.Tensor:
     dt = L.cdtype(cfg)
-    x = params["embed"]["tok"][tokens].to(dt)
+    x = take_rows(params["embed"]["tok"], tokens).to(dt)
     if cfg.family == "encdec":
         # absolute (sinusoidal) decoder positions; decode offsets by the
         # cache length so step t uses position t, not 0.
         x = x + L.sinusoidal_positions(tokens.shape[1], cfg.d_model,
                                        x.device, offset=pos_offset).to(dt)
-    return x
+    return shard(x, "batch", None, None)
 
 
 def _logits(params, x, cfg) -> torch.Tensor:
     head = params["embed"]["tok"].T if cfg.tie_embeddings else \
         params["lm_head"]["w"]
-    return x @ head.to(x.dtype)
+    return shard(x @ head.to(x.dtype), "batch", None, "vocab")
 
 
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -357,8 +376,24 @@ def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     x (B, S, D), head (D, V) with V divisible by `n_chunks`, labels
     (B, S) in [0, V). Never materializes the full (B, S, V) f32 logits,
     in the forward or the backward. Returns (lse, label_logit), both
-    (B, S) f32."""
-    return _ChunkedCE.apply(x, head, labels, n_chunks)
+    (B, S) f32. Under a mesh it runs on replicas of its inputs
+    (`sharding.on_replicas`): its chunks slice the vocabulary, which the
+    head's DTensor shards, and its gathers reduce partial sums that
+    DTensor cannot index."""
+    return on_replicas(lambda x, head, labels: _ChunkedCE.apply(
+        x, head, labels, n_chunks), x, head, labels)
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last dim. Where a mesh shards that dim (the
+    vocabulary), as max + log Σ exp(x − max), whose max and sum reduce
+    across the shards (jax.nn.logsumexp's form); DTensor would gather the
+    whole (B, S, V) logits onto every rank for `torch.logsumexp`."""
+    if not is_sharded(logits, logits.ndim - 1):
+        return torch.logsumexp(logits, dim=-1)
+    m = logits.amax(-1, keepdim=True).detach()
+    return (m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True)))[
+        ..., 0]
 
 
 def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
@@ -379,8 +414,9 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
                               safe, cfg.vocab_chunks)
     else:
         logits = (x @ head.to(x.dtype)).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+        logits = shard(logits, "batch", None, "vocab")
+        lse = _logsumexp(logits)
+        ll = pick_last(logits, safe)
     nll = (lse - ll) * mask
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = nll.sum() / denom

@@ -21,7 +21,14 @@ Guarantees (tests/test_torch_checkpoint.py):
   * resume-exactness — restore() and the counter-based data pipeline
     replay reproduce the uninterrupted run bitwise;
   * validation — a shape mismatch raises ValueError, a missing leaf
-    KeyError.
+    KeyError;
+  * elasticity — restore(shardings=...) lays every leaf out on the mesh
+    and placements it is given, so a job can come back on another mesh
+    shape.
+
+Under `torch.distributed` every rank calls `save` (a DTensor leaf is
+gathered whole, `full_tensor()`, a collective); rank 0 alone writes,
+after a barrier, and the others wait for it at a second one.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.sharding import is_dtensor
 
 
 def _paths(tree, prefix=()):
@@ -53,17 +61,22 @@ def _paths(tree, prefix=()):
         yield "/".join(prefix), tree
 
 
-def _rebuild(tree, prefix, get):
+def _rebuild(tree, prefix, get, shd=None):
+    """`tree`'s structure with get(key, leaf, sharding) at each leaf;
+    `shd` is None or a tree of the same structure whose leaves are
+    (mesh, placements) pairs."""
+    at = (lambda k: None) if shd is None else (lambda k: shd[k])
     if isinstance(tree, dict):
-        return {k: _rebuild(v, prefix + (str(k),), get)
+        return {k: _rebuild(v, prefix + (str(k),), get, at(k))
                 for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(_rebuild(getattr(tree, f), prefix + (f".{f}",),
-                                     get) for f in tree._fields))
+                                     get, at(i))
+                            for i, f in enumerate(tree._fields)))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, prefix + (str(i),), get)
+        return type(tree)(_rebuild(v, prefix + (str(i),), get, at(i))
                           for i, v in enumerate(tree))
-    return get("/".join(prefix), tree)
+    return get("/".join(prefix), tree, shd)
 
 
 def _numpy(leaf) -> np.ndarray:
@@ -71,15 +84,40 @@ def _numpy(leaf) -> np.ndarray:
         if leaf.dtype == torch.bfloat16:
             raise TypeError("bf16 leaves have no numpy dtype; checkpoint "
                             "the f32 masters")
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def save(ckpt_dir: str, step: int, tree, metadata: Optional[dict] = None
          ) -> str:
-    """Write one checkpoint atomically; returns its final path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write one checkpoint atomically; returns its final path. Under
+    `torch.distributed` every rank calls it (module doc)."""
     flat = {k: _numpy(v) for k, v in _paths(tree)}
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    _barrier()
+    try:
+        if _rank() == 0:
+            _write(ckpt_dir, step, flat, metadata, final)
+    finally:
+        _barrier()
+    return final
+
+
+def _write(ckpt_dir, step, flat, metadata, final) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=f".tmp_step_{step}_")
     try:
         np.savez(os.path.join(tmp, "arrays.npz"),
@@ -93,7 +131,6 @@ def save(ckpt_dir: str, step: int, tree, metadata: Optional[dict] = None
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
-        final = os.path.join(ckpt_dir, f"step_{step:08d}")
         if os.path.exists(final):
             shutil.rmtree(final)
         os.replace(tmp, final)                      # atomic publish
@@ -105,7 +142,6 @@ def save(ckpt_dir: str, step: int, tree, metadata: Optional[dict] = None
     with open(ptr_tmp, "w") as f:
         f.write(f"step_{step:08d}")
     os.replace(ptr_tmp, os.path.join(ckpt_dir, "LATEST"))
-    return final
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -121,12 +157,19 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, template, step: Optional[int] = None,
-            device=None) -> tuple[Any, int, dict]:
+            device=None, shardings=None) -> tuple[Any, int, dict]:
     """Load a checkpoint into `template`'s structure: a tree of tensors
     (meta tensors will do) whose shapes and dtypes the checkpoint's
     leaves must take. Every leaf lands on `device` (the CUDA card unless
-    the caller passes device='cpu'). Returns (tree, step, metadata)."""
-    dev = resolve_device(device)
+    the caller passes device='cpu').
+
+    shardings: optional tree of the template's structure whose leaves are
+    (DeviceMesh, placements) pairs: every leaf becomes a DTensor on its
+    mesh (each rank keeps its own slice of the whole leaf it read), which
+    may have another shape than the mesh that saved it — the elastic
+    restore. The mesh's device type then takes the place of `device`.
+    Returns (tree, step, metadata)."""
+    dev = resolve_device(device) if shardings is None else None
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -136,7 +179,7 @@ def restore(ckpt_dir: str, template, step: Optional[int] = None,
         manifest = json.load(f)
     keys = set(manifest["keys"])
     with np.load(os.path.join(path, "arrays.npz")) as npz:
-        def get(key, leaf):
+        def get(key, leaf, shd):
             if key not in keys:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
             arr = npz[key.replace("/", "|")]
@@ -144,17 +187,35 @@ def restore(ckpt_dir: str, template, step: Optional[int] = None,
             if tuple(arr.shape) != want_shape:
                 raise ValueError(f"shape mismatch for {key}: ckpt "
                                  f"{arr.shape} vs template {want_shape}")
-            return torch.from_numpy(arr).to(
-                device=dev, dtype=leaf.dtype)
+            if shd is None:
+                return torch.from_numpy(arr).to(device=dev,
+                                                dtype=leaf.dtype)
+            mesh, placements = shd
+            full = torch.from_numpy(arr).to(device=_mesh_device(mesh),
+                                            dtype=leaf.dtype)
+            return distribute_tensor(full, mesh, list(placements),
+                                     src_data_rank=None)
 
-        tree = _rebuild(template, (), get)
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+        tree = _rebuild(template, (), get, shardings)
     return tree, step, manifest["metadata"]
 
 
+def _mesh_device(mesh) -> torch.device:
+    """The device this rank's slices of `mesh` live on."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def prune_old(ckpt_dir: str, keep: int = 3) -> None:
-    """Keep the newest `keep` checkpoints (preemption-safe GC)."""
-    if not os.path.isdir(ckpt_dir):
+    """Keep the newest `keep` checkpoints (preemption-safe GC); under
+    `torch.distributed` rank 0 deletes and the others wait for it."""
+    if _rank() != 0 or not os.path.isdir(ckpt_dir):
+        _barrier()
         return
     steps = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("step_"))
     for d in steps[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
+    _barrier()

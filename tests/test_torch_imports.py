@@ -9,8 +9,10 @@ substrate (`repro_torch.models`, `repro_torch.configs`) and runs step 4
 of `serve_retrieval`, trains a tiny MoE (`repro_torch.launch.train.
 run_training`), checkpoints it and resumes it bitwise; its serving driver (`python -m
 repro_torch.launch.serve`) and the examples run under the same blocker
-(`chip_smoke.run_blocked`); and its entry points never fall back to the
-CPU quietly."""
+(`chip_smoke.run_blocked`), as do a 1 x 1 sharded training run on a
+single-rank gloo group (bitwise the unsharded run) and the dry run
+(`python -m repro_torch.launch.dryrun`); and its entry points never fall
+back to the CPU quietly."""
 import ast
 import os
 import subprocess
@@ -268,3 +270,46 @@ def test_examples_without_device_need_a_card(module):
     out = chip_smoke.run_blocked(module, timeout=180)
     assert out.returncode != 0
     assert "device='cpu'" in out.stderr
+
+
+_SHARDED = r"""
+import socket
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_config, reduced
+from repro_torch.launch import mesh, roofline, roofline_report  # noqa: F401
+from repro_torch.launch.train import run_training
+from repro_torch.models.transformer import leaves
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        rank=0, world_size=1)
+m = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+cfg = reduced(get_config("granite-3-8b"))
+kw = dict(steps=2, global_batch=2, seq_len=16, log_every=10**6,
+          device="cpu")
+pa, la = run_training(cfg, mesh=m, **kw)
+pb, lb = run_training(cfg, **kw)
+assert la == lb, (la, lb)
+assert all(torch.equal(a.to_local(), b) for a, b in zip(leaves(pa),
+                                                       leaves(pb)))
+dist.destroy_process_group()
+print("SHARDED_OK")
+"""
+
+
+@pytest.mark.parametrize("args", [
+    ("-c", _SHARDED),
+    ("repro_torch.launch.dryrun", "--arch", "gemma-2b", "--shape",
+     "decode_32k"),
+], ids=["sharded-train-1x1", "dryrun-decode"])
+def test_sharding_and_launchers_run_without_jax_or_reference(args):
+    import chip_smoke
+    out = chip_smoke.run_blocked(*args, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    rep = chip_smoke.runner_report(out.stdout)
+    assert rep["leaked"] == []
+    assert "SHARDED_OK" in out.stdout or "dry-run: 1 OK, 0 SKIP, 0 FAIL" \
+        in out.stdout, out.stdout[-2000:]
