@@ -136,7 +136,8 @@ class QueryBackend:
         1, the shared correction on u·q (one more (n, d) × (d, B) f32
         product, with the slack of quantized users), then the selection
         at `delta.selection_m()`."""
-        r_lo, r_up, est = self.bound_ranks(rt, users, qs)   # (B, n)
+        with trace.span("query.step1"):
+            r_lo, r_up, est = self.bound_ranks(rt, users, qs)   # (B, n)
         scores, slack = query_mod.user_scores_batch(users, qs)  # (n, B)
         r_lo, r_up, est = rt_mod.apply_delta_corrections(
             scores, r_lo.T, r_up.T, est.T, delta, slack=slack)
@@ -146,10 +147,16 @@ class QueryBackend:
     def query_batch(self, rt: RankTable, users: torch.Tensor,
                     qs: torch.Tensor, *, k: int, c: float,
                     delta: Optional[DeltaCorrection] = None) -> QueryResult:
-        if delta is not None:
-            return self._delta_query(rt, users, qs, k=k, c=c, delta=delta)
-        r_lo, r_up, est = self.bound_ranks(rt, users, qs)
-        return self.select(rt, r_lo, r_up, est, k=k, c=c)
+        """One batch: step 1 (`bound_ranks`) then the selection, inside
+        the batch's root span `query.batch`, step 1 inside `query.step1`
+        (the selection's spans are `select_topk`'s)."""
+        with trace.span("query.batch"):
+            if delta is not None:
+                return self._delta_query(rt, users, qs, k=k, c=c,
+                                         delta=delta)
+            with trace.span("query.step1"):
+                r_lo, r_up, est = self.bound_ranks(rt, users, qs)
+            return self.select(rt, r_lo, r_up, est, k=k, c=c)
 
 
     def dispatch_device(self, rt: RankTable, users, qs, *, k: int,

@@ -27,6 +27,7 @@ import torch
 from repro_torch.core.types import EPS_BF16, DeltaCorrection, QueryResult, \
     RankTable, StoredUsers, _I8_MAX, _I8_TRANSFORM_PAD, f32_scalar, \
     kth_smallest
+from repro_torch.obs import trace
 
 
 def m_plus(m, offset: int):
@@ -326,19 +327,24 @@ def select_topk(r_lo: torch.Tensor, r_up: torch.Tensor, est: torch.Tensor,
                 *, k: int, c, m_items) -> QueryResult:
     """Steps 2-3 of §4.3 on (n,) or (B, n) bounds. `c` and `m_items`
     may be 0-d f32 device tensors (`lemma1_key`); nothing here reads a
-    value back to the host."""
-    R_lo_k = kth_smallest(r_lo, k)
-    R_up_k = kth_smallest(r_up, k)
-    indices, guaranteed, accepted, pruned = lemma1_select(
-        r_lo, r_up, est, R_lo_k=R_lo_k, R_up_k=R_up_k, k=k, c=c,
-        m_items=m_items)
-    return QueryResult(
-        indices=indices,
-        est_rank=torch.gather(est, -1, indices),
-        r_lo=r_lo, r_up=r_up, R_lo_k=R_lo_k, R_up_k=R_up_k,
-        guaranteed=guaranteed,
-        n_accepted=accepted.sum(dim=-1, dtype=torch.int32),
-        n_pruned=pruned.sum(dim=-1, dtype=torch.int32))
+    value back to the host. Spans: `query.select` around it all,
+    `select.kth` (the two order statistics) and `select.lemma1` (the key
+    and its sort) inside it."""
+    with trace.span("query.select"):
+        with trace.span("select.kth"):
+            R_lo_k = kth_smallest(r_lo, k)
+            R_up_k = kth_smallest(r_up, k)
+        with trace.span("select.lemma1"):
+            indices, guaranteed, accepted, pruned = lemma1_select(
+                r_lo, r_up, est, R_lo_k=R_lo_k, R_up_k=R_up_k, k=k, c=c,
+                m_items=m_items)
+        return QueryResult(
+            indices=indices,
+            est_rank=torch.gather(est, -1, indices),
+            r_lo=r_lo, r_up=r_up, R_lo_k=R_lo_k, R_up_k=R_up_k,
+            guaranteed=guaranteed,
+            n_accepted=accepted.sum(dim=-1, dtype=torch.int32),
+            n_pruned=pruned.sum(dim=-1, dtype=torch.int32))
 
 
 def query_batch(rt: RankTable, users: torch.Tensor, qs: torch.Tensor,

@@ -9,6 +9,11 @@ Counterpart of `repro/obs`:
     (a copy of the reference's stdlib-only module);
   * `repro_torch.obs.trace` — nestable monotonic-clock spans in a ring
     buffer, disabled by default, with opt-in `torch.profiler` annotations;
+    each record carries a trace id shared by a root span and everything
+    under it (one query batch: `query.batch` around `query.step1` and
+    `query.select`, which holds `select.kth` and `select.lemma1`), its own
+    and its parent's span ids, and `start_ns`, its start on the profiler's
+    clock;
   * `repro_torch.obs.audit` — the online quality auditor: shadow-samples
     served queries and re-scores them exactly in the background (K3 on a
     CUDA stream of its own), publishing rolling §5 overall-ratio and

@@ -3,11 +3,21 @@
 
 A span is one timed region on ONE thread — admission→dispatch queue wait,
 a cache lookup, the pruned scan's phase A, the elastic repad, a rebuild's
-build/swap halves. Spans NEST through a thread-local stack (each record
-carries its parent's name path and depth), and completed records land in
-a process-global RING BUFFER (`deque(maxlen=...)`): a serving process
-keeps the most recent few thousand spans for a dashboard or post-mortem
-without unbounded growth.
+build/swap halves, a query batch's step 1 and selection. Spans NEST
+through a thread-local stack (each record carries its parent's name and
+depth), and completed records land in a process-global RING BUFFER
+(`deque(maxlen=...)`): a serving process keeps the most recent few
+thousand spans for a dashboard or post-mortem without unbounded growth.
+
+Each record also carries ids: a span opened on an empty stack starts a
+new TRACE (`trace_id`, from a process-wide counter), and every span and
+`event()` under it carries that trace id, a `span_id` of its own and its
+parent's `span_id` as `parent_id`; so one query batch's records group by
+`trace_id` however the ring buffer interleaves threads. `t_start` is
+`time.monotonic()`; `start_ns` is the same instant on the clock that
+`torch.profiler` stamps its events with (Unix-epoch nanoseconds, through
+one offset from the monotonic clock read at import), so that records lay
+over a profiler trace.
 
 Spans are DISABLED by default and the hot path stays out of their way:
 `span(...)` with tracing off returns a shared no-op context manager — one
@@ -36,6 +46,7 @@ Usage::
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import threading
 import time
@@ -50,6 +61,9 @@ _profiler = False
 _tls = threading.local()
 _lock = threading.Lock()                # guards buffer swaps only
 _buffer: Deque["SpanRecord"] = deque(maxlen=4096)
+_ids = itertools.count(1)               # trace and span ids, process-wide
+# the profiler's clock (Unix-epoch ns) less the monotonic clock, read once
+_PROFILER_CLOCK_OFFSET_NS = time.time_ns() - time.monotonic_ns()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,10 +77,19 @@ class SpanRecord:
     parent: Optional[str]               # enclosing span's name, if any
     thread: str
     attrs: Tuple[Tuple[str, object], ...] = ()
+    trace_id: int = 0                   # shared by a root and all below it
+    span_id: int = 0
+    parent_id: Optional[int] = None     # enclosing span's span_id, if any
 
     @property
     def duration_ms(self) -> float:
         return self.duration_s * 1e3
+
+    @property
+    def start_ns(self) -> int:
+        """`t_start` on the profiler's clock (`torch.profiler` events'
+        `start_ns()`, Unix-epoch nanoseconds)."""
+        return round(self.t_start * 1e9) + _PROFILER_CLOCK_OFFSET_NS
 
 
 class _NullSpan:
@@ -94,8 +117,19 @@ def _stack() -> list:
     return s
 
 
+def _ids_under(stack: list) -> Tuple[int, int, Optional[int]]:
+    """(trace_id, span_id, parent_id) of a record opened on `stack`: a new
+    trace on an empty stack, else the innermost open span's."""
+    span_id = next(_ids)
+    if not stack:
+        return span_id, span_id, None
+    top = stack[-1]
+    return top.trace_id, span_id, top.span_id
+
+
 class _Span:
-    __slots__ = ("name", "attrs", "t0", "_prof")
+    __slots__ = ("name", "attrs", "t0", "_prof", "trace_id", "span_id",
+                 "parent_id")
 
     def __init__(self, name: str, attrs: dict):
         self.name = name
@@ -113,7 +147,9 @@ class _Span:
             self._prof.__enter__()
             # host and device timelines align because the annotation
             # brackets exactly this span's body
-        _stack().append(self.name)
+        stack = _stack()
+        self.trace_id, self.span_id, self.parent_id = _ids_under(stack)
+        stack.append(self)
         self.t0 = time.monotonic()
         return self
 
@@ -121,17 +157,19 @@ class _Span:
         t1 = time.monotonic()
         stack = _stack()
         # tolerate enable()/disable() races mid-span: only pop our frame
-        if stack and stack[-1] is self.name:
+        if stack and stack[-1] is self:
             stack.pop()
         depth = len(stack)
-        parent = stack[-1] if stack else None
+        parent = stack[-1].name if stack else None
         if self._prof is not None:
             self._prof.__exit__(*exc)
         _buffer.append(SpanRecord(
             name=self.name, t_start=self.t0, duration_s=t1 - self.t0,
             depth=depth, parent=parent,
             thread=threading.current_thread().name,
-            attrs=tuple(sorted(self.attrs.items()))))
+            attrs=tuple(sorted(self.attrs.items())),
+            trace_id=self.trace_id, span_id=self.span_id,
+            parent_id=self.parent_id))
         return False
 
 
@@ -147,15 +185,18 @@ def event(name: str, t_start: float, duration_s: float, **attrs) -> None:
     """Record a RETROACTIVE span — an interval measured across threads
     (e.g. a request's submit→dispatch queue wait, timed on the dispatcher
     thread from the client thread's submit timestamp). It is attributed
-    to the calling thread's current span stack."""
+    to the calling thread's current span stack, and so to its trace (a
+    new trace on an empty stack)."""
     if not _enabled:
         return
     stack = _stack()
+    trace_id, span_id, parent_id = _ids_under(stack)
     _buffer.append(SpanRecord(
         name=name, t_start=t_start, duration_s=duration_s,
-        depth=len(stack), parent=stack[-1] if stack else None,
+        depth=len(stack), parent=stack[-1].name if stack else None,
         thread=threading.current_thread().name,
-        attrs=tuple(sorted(attrs.items()))))
+        attrs=tuple(sorted(attrs.items())), trace_id=trace_id,
+        span_id=span_id, parent_id=parent_id))
 
 
 def enable(profiler: bool = False) -> None:

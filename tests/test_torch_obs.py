@@ -463,3 +463,118 @@ def test_audit_thread_death_flips_liveness_gauge():
     finally:
         faults.clear()
         aud.close()
+
+
+# ------------------------------------------------- a batch's trace spans
+BATCH_TREE = {"query.batch": None, "query.step1": "query.batch",
+              "query.select": "query.batch", "select.kth": "query.select",
+              "select.lemma1": "query.select"}
+
+
+def _small_engine(backend):
+    rng = np.random.default_rng(1)
+    users = torch.from_numpy(rng.integers(-4, 5, (200, 8)).astype(np.float32))
+    items = torch.from_numpy(rng.integers(-4, 5, (60, 8)).astype(np.float32))
+    eng = ReverseKRanksEngine.build(users, items, RankTableConfig(
+        tau=8, omega=2, s=4), 0, backend=backend, device="cpu")
+    return eng, items
+
+
+def _by_trace(recs):
+    out = {}
+    for r in recs:
+        out.setdefault(r.trace_id, []).append(r)
+    return out
+
+
+@pytest.mark.parametrize("backend", ["dense", "fused"])
+def test_a_batch_is_one_trace_of_nested_spans(clean_trace, backend):
+    """One `query_batch` records `query.batch` around `query.step1` and
+    `query.select`, and `select.kth` and `select.lemma1` inside the
+    latter, all under one trace id, each `parent_id` the enclosing
+    record's `span_id`; a second batch is a second trace; with tracing
+    off nothing is recorded."""
+    eng, items = _small_engine(backend)
+    eng.query_batch(items[:3], 5, 2.0)
+    assert trace.spans() == []
+    trace.enable()
+    eng.query_batch(items[:3], 5, 2.0)
+    eng.query_batch(items[3:7], 5, 2.0)
+    trace.disable()
+    traces = _by_trace(trace.spans())
+    assert len(traces) == 2
+    for recs in traces.values():
+        by_name = {r.name: r for r in recs}
+        assert sorted(by_name) == sorted(BATCH_TREE) and len(recs) == 5
+        for r in recs:
+            parent = BATCH_TREE[r.name]
+            assert r.parent == parent
+            if parent is None:
+                assert r.depth == 0 and r.parent_id is None
+                assert r.span_id == r.trace_id
+            else:
+                assert r.parent_id == by_name[parent].span_id
+                assert r.depth == by_name[parent].depth + 1
+        assert len({r.span_id for r in recs}) == 5
+        root = by_name["query.batch"]
+        for r in recs:        # a child starts and ends inside its parent
+            assert root.t_start <= r.t_start
+            assert r.t_start + r.duration_s <= root.t_start \
+                + root.duration_s + 1e-9
+    trace.clear()
+    eng.query_batch(items[:3], 5, 2.0)
+    assert trace.spans() == []
+
+
+def test_a_delta_batch_spans_step1_and_the_selection(clean_trace):
+    """On a mutated index the fused backend's base-class delta path runs
+    under `engine.delta_correct`, the trace's root, with `query.batch`,
+    `query.step1` and the selection's spans below it in one trace."""
+    eng, items = _small_engine("fused")
+    eng.insert_items(items[:2] * 2)
+    trace.enable()
+    eng.query_batch(items[:4], 5, 2.0)
+    trace.disable()
+    (tid, recs), = _by_trace(trace.spans()).items()
+    by_name = {r.name: r for r in recs}
+    assert sorted(by_name) == sorted(["engine.delta_correct", *BATCH_TREE])
+    root = by_name["engine.delta_correct"]
+    assert root.span_id == tid and root.parent_id is None
+    assert by_name["query.batch"].parent_id == root.span_id
+    assert by_name["query.step1"].parent_id == by_name["query.batch"].span_id
+    assert by_name["query.select"].parent_id \
+        == by_name["query.batch"].span_id
+
+
+def test_event_under_a_span_carries_its_trace(clean_trace):
+    trace.enable()
+    with trace.span("outer"):
+        with trace.span("inner"):
+            trace.event("queue_wait", 1.0, 0.5)
+    trace.event("alone", 2.0, 0.5)
+    outer, = trace.spans("outer")
+    inner, = trace.spans("inner")
+    ev, = trace.spans("queue_wait")
+    alone, = trace.spans("alone")
+    assert ev.trace_id == inner.trace_id == outer.trace_id
+    assert ev.parent_id == inner.span_id and ev.parent == "inner"
+    assert ev.span_id not in (inner.span_id, outer.span_id)
+    assert alone.parent_id is None and alone.trace_id != outer.trace_id
+    assert ev.t_start == 1.0            # the monotonic stamp it was given
+
+
+def test_span_start_is_on_the_profilers_clock(clean_trace):
+    """A record's `start_ns` and its `record_function` range's
+    `start_ns()` in a CPU-only profile agree within 1 ms."""
+    trace.enable(profiler=True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with trace.span("clock.check"):
+                torch.ones(4).sum()
+    ranges = sorted(e.start_ns() for e in prof.profiler.kineto_results.events()
+                    if e.name() == "clock.check")
+    recs = trace.spans("clock.check")
+    assert len(ranges) == len(recs) == 3
+    for r, start in zip(recs, ranges):
+        assert abs(r.start_ns - start) < 1_000_000
