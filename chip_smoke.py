@@ -1477,7 +1477,8 @@ def mutable_index_checks(dev, *, n=N, m=M, d=D, tau=TAU,
     expect(f"delta query_batch(B={B}) at f32, bf16, int8 and query at f32",
            {"k1_bound_ranks": per_block(B) + 1,
             "k4_bound_ranks_bf16": per_block(B),
-            "k5_bound_ranks_int8": per_block(B)})
+            "k5_bound_ranks_int8": per_block(B),
+            "select_kth": 4, "select_lemma1": 4})
     live = torch.from_numpy(snap.delta.user_live).to(dev)
 
     # (a) the f32 fused delta bounds against the brute force, B = 16 and
@@ -1889,18 +1890,20 @@ def serving_checks(dev, *, users, items, cfg, pos, w, qs, engines,
             sync()
             win = {k: v for k, v in ops.LAUNCHES.items() if v}
             per_run = -(-nb // ops.user_scores.MAX_B)
-            want_win = {name: 2 * per_run} if on_card else {}
+            # a selection a run of the body: the eager run and the capture
+            want_win = {name: 2 * per_run, "select_kth": 2,
+                        "select_lemma1": 2} if on_card else {}
             check(win == want_win, f"(a) elastic:fused {spec} B={nb}: "
                   f"launches {win}, expected {want_win}")
             windows[(spec, nb)] = win.get(name, 0)
             prog = next(p for p in eng_e._backend.programs()
                         if p.qs.shape[0] == nb)
             if on_card:
-                check(prog.replays == 2
-                      and prog.recorded == {name: per_run},
+                held = {name: per_run, "select_kth": 1, "select_lemma1": 1}
+                check(prog.replays == 2 and prog.recorded == held,
                       f"(a) elastic:fused {spec} B={nb}: {prog.replays} "
                       f"replays holding {prog.recorded}, expected 2 "
-                      f"holding {{{name!r}: {per_run}}}")
+                      f"holding {held}")
             lines.append(f"{spec} B={nb}: {win.get(name, 0)} launches of "
                          f"{name}, then {prog.replays} replays of a graph "
                          f"holding {prog.recorded.get(name, 0)}")
@@ -3911,7 +3914,9 @@ def lm_checks(dev, *, configs=None, prefill=LM_PREFILL, decode=LM_DECODE,
           "(c) embeddings of the wrong shape or type, or not finite")
     if cuda:
         want_counts = {"k2_table_build": 1, "k1_bound_ranks": queries + 1,
-                       "k3_exact_ranks": 2 * queries}
+                       "k3_exact_ranks": 2 * queries,
+                       "select_kth": queries + 1,
+                       "select_lemma1": queries + 1}
         got_counts = {k: v for k, v in counts.items() if v}
         check(got_counts == want_counts, f"(c) launches {got_counts}, "
               f"expected {want_counts}")
@@ -4772,6 +4777,76 @@ def main() -> int:
     return 0
 
 
+# phase 5b's cells: the benchmark's two (name, n users, m items, storage)
+SELECT_CELLS = (("netflix-f32", N, M, "float32"),
+                ("amazon-k-int8", 1_406_890, 430_530, "int8"))
+
+
+def selection_checks(dev, *, cells=SELECT_CELLS, d=D, nb=B, k=K, c=C,
+                     reps=50) -> list:
+    """Phase 5b, the selection kernels (`csrc/select_topk.cu`) on step 1's
+    real outputs at each cell's shape: a fused engine over synthetic
+    embeddings (seed 0, build seed 1) at (n, m, storage), nb item queries
+    (seed 2), step 1's user-major (nb, n) views from
+    `ops.bound_ranks_batched_stored`. The kernel (`ops.select_topk`) must
+    be bitwise the plain version (`select_topk_plain`) in all nine fields,
+    counting one `select_kth` and one `select_lemma1` launch a call; then
+    both are timed by CUDA events, the kernel beside its bound, r_lo and
+    r_up read by each stage and est by the second: 5·n·nb·4 bytes at
+    3.35 TB/s. Returns a kernel record a cell."""
+    import torch
+    from repro_torch.core import query as query_mod
+    from repro_torch.core.engine import ReverseKRanksEngine
+    from repro_torch.core.types import RankTableConfig
+    from repro_torch.data.pipeline import synthetic_embeddings
+    from repro_torch.kernels import ops
+    print(f"phase: the selection kernels on step 1's outputs, B={nb}, k={k}")
+    recs = []
+    for name, n, m, storage in cells:
+        users, items = synthetic_embeddings(0, n, m, d, device=dev)
+        cfg = RankTableConfig(tau=TAU, omega=OMEGA, s=S_PER,
+                              storage_dtype=storage)
+        eng = ReverseKRanksEngine.build(users, items, cfg, 1,
+                                        backend="fused", device=dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(2)
+        qs = items[torch.randperm(m, generator=g, device=dev)[:nb]] \
+            .contiguous()
+        del users, items
+        snap = eng.current_snapshot()
+        bounds = ops.bound_ranks_batched_stored(snap.query_users(), qs,
+                                                snap.rank_table)
+        check(bounds[0].stride() == (1, nb),
+              f"{name}: step 1's bounds are not user-major views")
+        ops.reset_launch_counts()
+        got = ops.select_topk(*bounds, k=k, c=c, m_items=m)
+        torch.cuda.synchronize()
+        launches = {x: v for x, v in ops.LAUNCHES.items() if v}
+        check(launches == {"select_kth": 1, "select_lemma1": 1},
+              f"{name}: launches {launches}, expected one of each stage")
+        want = query_mod.select_topk_plain(*bounds, k=k, c=c, m_items=m)
+        differ = [f for f in got._fields
+                  if getattr(got, f).dtype != getattr(want, f).dtype
+                  or not torch.equal(getattr(got, f), getattr(want, f))]
+        check(not differ, f"{name}: the selection kernels differ from the "
+              f"plain version in {differ}")
+        ms = time_ms(torch, lambda: ops.select_topk(*bounds, k=k, c=c,
+                                                    m_items=m), reps=reps)
+        pms = time_ms(torch, lambda: query_mod.select_topk_plain(
+            *bounds, k=k, c=c, m_items=m), reps=10)
+        print(f"  {name}: n={n}, bitwise the plain version in all nine "
+              f"fields ({int(got.guaranteed.sum())} of {nb} guaranteed, "
+              f"n_accepted {got.n_accepted.tolist()}); "
+              + device_breakdown(torch, lambda: ops.select_topk(
+                  *bounds, k=k, c=c, m_items=m), reps=reps))
+        recs.append(kernel_record(
+            f"select_topk[{name}, B={nb}, k={k}]", None, 2, 0.0, ms, pms,
+            5 * n * nb * 4, 0, "src/repro_torch/kernels/csrc/select_topk.cu"))
+        del eng, snap, bounds, got, want, qs
+        torch.cuda.empty_cache()
+    return recs
+
+
 def kernel_record(name, replaces, launches, err, ms, plain_ms, bound_bytes,
                   bound_ops, source) -> dict:
     """One kernel's entry of the kernels line, printed: its bound is the
@@ -5280,7 +5355,8 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
     exact_s = time.perf_counter() - t0
     counts = dict(ops.LAUNCHES)
     print(f"  launches on the main path: {counts}")
-    for name in ("k1_bound_ranks", "k2_table_build", "k3_exact_ranks"):
+    for name in ("k1_bound_ranks", "k2_table_build", "k3_exact_ranks",
+                 "select_kth", "select_lemma1"):
         check(counts[name] >= 1,
               f"kernel {name} was not launched on the main path")
     mem = eng.memory_bytes()
@@ -5887,6 +5963,9 @@ def run(torch, exact_mod, metrics, query_mod, rt_mod, ReverseKRanksEngine,
                   "kept rows)")
             row(f"{name}[B={nb}]", f"src/repro/kernels/user_scores.py:{line}",
                 counts_p[name], err, ms, pms, need, flops, src + source)
+
+    # 5b. the selection kernels at both benchmark cells' shapes
+    out.extend(selection_checks(dev))
 
     # 6. the serving path: elastic programs on CUDA graphs, MicroBatcher
     from repro_torch.core import elastic

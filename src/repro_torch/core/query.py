@@ -325,9 +325,21 @@ def lemma1_select(r_lo, r_up, est, *, R_lo_k, R_up_k, k: int, c,
 
 def select_topk(r_lo: torch.Tensor, r_up: torch.Tensor, est: torch.Tensor,
                 *, k: int, c, m_items) -> QueryResult:
-    """Steps 2-3 of §4.3 on (n,) or (B, n) bounds. `c` and `m_items`
-    may be 0-d f32 device tensors (`lemma1_key`); nothing here reads a
-    value back to the host. Spans: `query.select` around it all,
+    """Steps 2-3 of §4.3 on (n,) or (B, n) bounds, through the checked
+    wrapper `kernels.ops.select_topk`: CUDA tensors launch the selection
+    kernels, bitwise `select_topk_plain`, which CPU tensors take. The
+    bounds may be views at any strides (step 1's user-major `.T`). `c`
+    and `m_items` may be 0-d f32 device tensors (`lemma1_key`); nothing
+    reads a value back to the host."""
+    from repro_torch.kernels import ops
+    return ops.select_topk(r_lo, r_up, est, k=k, c=c, m_items=m_items)
+
+
+def select_topk_plain(r_lo: torch.Tensor, r_up: torch.Tensor,
+                      est: torch.Tensor, *, k: int, c,
+                      m_items) -> QueryResult:
+    """The plain version of `select_topk`, in PyTorch's library
+    operations on any device. Spans: `query.select` around it all,
     `select.kth` (the two order statistics) and `select.lemma1` (the key
     and its sort) inside it."""
     with trace.span("query.select"):

@@ -5,10 +5,13 @@
                 the certified widening of the storage tier
   table_build — K2: fused U·Samplesᵀ + Eq. (1) weighted counts
   exact_rank  — K3: streaming Definition-1 counts (exact oracle)
+  select_topk — the selection (§4.3 steps 2-3): R↓_k / R↑_k, then the
+                Lemma-1 key's k smallest users, over step 1's bounds
 
 `ops.py` holds the public wrappers: a CPU tensor takes the plain
-version in `ref.py`, a CUDA tensor launches the kernel or raises.
-`user_scores.py` launches K1, K4 and K5, `table_build.py` and
-`exact_rank.py` one kernel each; `_build.py` compiles `csrc/*.cu` with
-nvcc at first CUDA use.
+version (in `ref.py`; the selection's is `core.query.select_topk_plain`),
+a CUDA tensor launches the kernel or raises. `user_scores.py` launches
+K1, K4 and K5, `table_build.py`, `exact_rank.py` and `select_topk.py`
+their own kernels; `_build.py` compiles `csrc/*.cu` with nvcc at first
+CUDA use.
 """

@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("user_scores", "user_scores_quant", "table_build", "exact_rank")
+SOURCES = ("user_scores", "user_scores_quant", "table_build", "exact_rank",
+           "select_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -32,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+L = ctypes.c_longlong
 # symbol → argtypes; every entry returns the cudaError_t of its launch
 SIGNATURES = {
     "user_scores": {
@@ -64,6 +66,10 @@ SIGNATURES = {
     "exact_rank": {"k3_exact_ranks": (P, P, P, P, P, I, I, I, P),
                    "k3_workspace_floats": (I, I, P),
                    "k3_launch_config": (I, P)},
+    "select_topk": {"select_plan": (I, I, I, P),
+                    "select_kth": (P, L, L, P, L, L, I, I, I, I, P, P, P),
+                    "select_lemma1": (P, L, L, P, L, L, P, L, L, I, I, I, I,
+                                      P, P, F, P, F, P, P, P, P, P, P)},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,5 @@
-"""Public wrappers of the CUDA kernels K1-K7 and the elastic entries of
-K1, K4 and K5.
+"""Public wrappers of the CUDA kernels K1-K7, the elastic entries of K1,
+K4 and K5, and the selection (`select_topk`).
 
 Each wrapper checks dtype, shape, device and contiguity, then: for CPU
 tensors it runs the plain version in `ref.py`; for CUDA tensors it
@@ -18,16 +18,20 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.query import query_l1
-from repro_torch.core.types import RankTable, StoredUsers, stored_rows
-from repro_torch.kernels import exact_rank, ref, table_build, user_scores
+from repro_torch.core.query import query_l1, select_topk_plain
+from repro_torch.core.types import QueryResult, RankTable, StoredUsers, \
+    stored_rows
+from repro_torch.kernels import exact_rank, ref, select_topk as select_mod, \
+    table_build, user_scores
+from repro_torch.obs import trace
 
 LAUNCHES = {"k1_bound_ranks": 0, "k2_table_build": 0, "k3_exact_ranks": 0,
             "k4_bound_ranks_bf16": 0, "k5_bound_ranks_int8": 0,
             "k6_bound_ranks_masked": 0, "k7_bound_ranks_bf16_masked": 0,
             "k7_bound_ranks_int8_masked": 0, "k1_bound_ranks_elastic": 0,
             "k4_bound_ranks_bf16_elastic": 0,
-            "k5_bound_ranks_int8_elastic": 0}
+            "k5_bound_ranks_int8_elastic": 0, "select_kth": 0,
+            "select_lemma1": 0}
 _QUANT_KERNEL = {"bf16": "k4_bound_ranks_bf16", "int8": "k5_bound_ranks_int8"}
 _QUANT_MASKED = {"bf16": "k7_bound_ranks_bf16_masked",
                  "int8": "k7_bound_ranks_int8_masked"}
@@ -371,3 +375,93 @@ def exact_ranks(users: torch.Tensor, items: torch.Tensor, q: torch.Tensor,
     out = exact_rank.exact_ranks_kernel_call(users, items, q)
     LAUNCHES["k3_exact_ranks"] += 1
     return out
+
+
+def _check_selection(r_lo: torch.Tensor, r_up: torch.Tensor,
+                     est: torch.Tensor, k: int, c, m_items) -> None:
+    """Three f32 bounds of one shape, (n,) or (B, n), on one device, at
+    any strides; 1 <= k <= n; c and m_items Python numbers or 0-d
+    tensors."""
+    dev = r_lo.device
+    for name, t in (("r_lo", r_lo), ("r_up", r_up), ("est", est)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be torch.float32, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.shape != r_lo.shape or t.dim() not in (1, 2):
+            raise ValueError(f"r_lo, r_up and est must share one (n,) or "
+                             f"(B, n) shape, got {tuple(r_lo.shape)}, "
+                             f"{tuple(r_up.shape)}, {tuple(est.shape)}")
+    n = r_lo.shape[-1]
+    if not 1 <= k <= n:
+        raise ValueError(f"k must lie in [1, n = {n}], got {k}")
+    if n >= 2 ** 31 - 2 ** 13:
+        raise ValueError(f"n = {n} users exceed the selection's 32-bit "
+                         "user index")
+    for name, x in (("c", c), ("m_items", m_items)):
+        if isinstance(x, torch.Tensor) and x.dim() != 0:
+            raise ValueError(f"{name} must be a number or a 0-d tensor, got "
+                             f"shape {tuple(x.shape)}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+
+
+def _device_scalar(x, dev: torch.device):
+    """A tensor c or m as a 0-d f32 tensor on `dev`, as the plain
+    version's arithmetic sees it; a Python number as it is."""
+    if not isinstance(x, torch.Tensor) or (x.dtype == torch.float32
+                                           and x.device == dev):
+        return x
+    return x.to(device=dev, dtype=torch.float32)
+
+
+def select_topk(r_lo: torch.Tensor, r_up: torch.Tensor, est: torch.Tensor,
+                *, k: int, c, m_items) -> QueryResult:
+    """Steps 2-3 of §4.3 on (n,) or (B, n) bounds → `QueryResult`.
+
+    CPU tensors take the plain version (`core.query.select_topk_plain`).
+    CUDA tensors take the selection kernels (`csrc/select_topk.cu`),
+    bitwise the plain version in every field: inside the span
+    `query.select`, one `select_kth` call (R↓_k, R↑_k) inside
+    `select.kth`, then one `select_lemma1` call (the key, its k smallest
+    users, est there, guaranteed and the counts) inside `select.lemma1`;
+    each counts one launch and makes a scan launch and a merge launch per
+    64 of k. The bounds are read through their strides, so step 1's
+    user-major views need no copy. `c` and `m_items` may be 0-d f32
+    device tensors, read when the kernels run: nothing is read back to
+    the host, and a CUDA graph can hold the launches.
+    """
+    k = int(k)
+    _check_selection(r_lo, r_up, est, k, c, m_items)
+    dev = r_lo.device
+    if dev.type == "cpu":
+        return select_topk_plain(r_lo, r_up, est, k=k, c=c, m_items=m_items)
+    with trace.span("query.select"):
+        c = _device_scalar(c, dev)
+        m_items = _device_scalar(m_items, dev)
+        lo, up, e = (x if x.dim() == 2 else x[None] for x in
+                     (r_lo, r_up, est))
+        B, n = lo.shape
+        R = torch.empty((2, B), dtype=torch.float32, device=dev)
+        indices = torch.empty((B, k), dtype=torch.int64, device=dev)
+        est_rank = torch.empty((B, k), dtype=torch.float32, device=dev)
+        guaranteed = torch.empty(B, dtype=torch.bool, device=dev)
+        counts = torch.empty((2, B), dtype=torch.int32, device=dev)
+        if B > 0:
+            G, nbytes = select_mod.plan(B, n, k, dev)
+            scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            with trace.span("select.kth"):
+                select_mod.kth_kernel_call(lo, up, k, G, scratch, R)
+                LAUNCHES["select_kth"] += 1
+            with trace.span("select.lemma1"):
+                select_mod.lemma1_kernel_call(
+                    lo, up, e, k, G, scratch, R, c, m_items, indices,
+                    est_rank, guaranteed, counts)
+                LAUNCHES["select_lemma1"] += 1
+        res = QueryResult(indices=indices, est_rank=est_rank, r_lo=lo,
+                          r_up=up, R_lo_k=R[0], R_up_k=R[1],
+                          guaranteed=guaranteed, n_accepted=counts[0],
+                          n_pruned=counts[1])
+        if r_lo.dim() == 1:
+            res = QueryResult(*(x[0] for x in res))
+        return res

@@ -339,6 +339,10 @@ def test_cpu_path_launches_nothing_and_builds_nothing():
         ops.bound_ranks_batched_stored(su, torch.ones(3, 4), rt)
         ops.bound_ranks_batched_stored(torch.ones(10, 4), torch.ones(1, 4),
                                        rt)
+    lo = torch.rand(20, 3)
+    ops.select_topk(lo.T, (lo + 1).T, (lo + 0.5).T, k=4, c=2.0, m_items=10)
+    ops.select_topk(lo[:, 0], lo[:, 0] + 1, lo[:, 0], k=20,
+                    c=torch.tensor(2.0), m_items=torch.tensor(10.0))
     assert ops.LAUNCHES == before
     assert _build._LIBS == {}
 

@@ -178,6 +178,47 @@ def test_selection_breaks_ties_to_lower_index():
         [[3, 1, 2]]
 
 
+def _tied_bounds(B, n, seed):
+    """Integer-valued step-1 outputs with heavy ties in every Lemma-1
+    class, in step 1's user-major layout: (n, B) buffers."""
+    g = torch.Generator().manual_seed(seed)
+    lo = torch.randint(1, 30, (n, B), generator=g).float()
+    up = lo + torch.randint(0, 20, (n, B), generator=g).float()
+    est = torch.minimum(lo + torch.randint(0, 20, (n, B), generator=g), up)
+    return lo, up, est
+
+
+@pytest.mark.parametrize("B", [1, 3, 16])
+def test_selection_reads_user_major_views(B):
+    """The plain path on step 1's user-major `.T` views gives, field by
+    field, what it gives on contiguous query-major copies."""
+    lo, up, est = _tied_bounds(B, 500, B)
+    views = (lo.T, up.T, est.T)
+    assert views[0].stride() == (1, B)
+    got = Q.select_topk(*views, k=K, c=2.0, m_items=60)
+    want = Q.select_topk(*(v.contiguous() for v in views), k=K, c=2.0,
+                         m_items=60)
+    for f in got._fields:
+        assert getattr(got, f).dtype == getattr(want, f).dtype, f
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "k0", "k_over_n"])
+def test_selection_wrapper_rejects_malformed_inputs(bad):
+    lo, up, est = (x.T for x in _tied_bounds(3, 20, 0))
+    k = K
+    if bad == "dtype":
+        est = est.double()
+    elif bad == "shape":
+        up = up[:, :19]
+    elif bad == "k0":
+        k = 0
+    else:
+        k = 21
+    with pytest.raises((TypeError, ValueError)):
+        Q.select_topk(lo, up, est, k=k, c=2.0, m_items=60)
+
+
 def test_query_is_the_batch_of_one(problem, tables):
     kw, rt, c = tables["non_guaranteed"]
     st = _ref_state(problem, rt)
